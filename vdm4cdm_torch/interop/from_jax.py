@@ -1,0 +1,71 @@
+"""JAX params tree -> state_dict of the port's :class:`VDM`.
+
+The JAX package's VDM params are ``{"unet": <CUNet tree>, "gamma": {"b", "w"}}``
+with numpy (or array-like) leaves. The port keeps every parameter's JAX name
+and layout: conv kernels (k, k, k, Cin, Cout), dense kernels (in, out), the
+attention ``qkv`` kernel (C, 3, heads, hd) with bias (3, heads, hd) and its
+``proj`` kernel (heads, hd, C). So the mapping is by name alone:
+
+  * ``unet`` -> ``score_model``, ``gamma`` -> ``schedule``;
+  * the unnamed flax submodules ``_GroupNorm_i`` / ``_Conv_i`` lose their
+    leading underscore;
+  * ``mid_attn`` (the attention block) -> ``mid_attn_block``.
+
+Imports neither jax nor the JAX package: it reads plain nested mappings.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+_TOP = {"unet": "score_model", "gamma": "schedule"}
+
+
+def _rename(path):
+    top = _TOP.get(path[0])
+    if top is None:
+        raise KeyError(f"unknown top-level key {path[0]!r}: expected "
+                       f"{sorted(_TOP)}")
+    out = [top]
+    for i, part in enumerate(path[1:]):
+        if i == 0 and top == "score_model" and part == "mid_attn":
+            part = "mid_attn_block"
+        out.append(part.lstrip("_"))
+    return ".".join(out)
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def params_from_jax(tree: Mapping[str, Any],
+                    model: Optional[torch.nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Map a JAX VDM params tree onto the port's state_dict names (f32 CPU
+    tensors). With ``model``, every key and shape is checked against
+    ``model.state_dict()``: a parameter the tree lacks, or a tree leaf the
+    model has no place for, raises ``KeyError``; a shape mismatch raises
+    ``ValueError``."""
+    sd = {}
+    for path, leaf in _flatten(tree):
+        sd[_rename(path)] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32, copy=True))
+    if model is not None:
+        want = model.state_dict()
+        missing = sorted(set(want) - set(sd))
+        unused = sorted(set(sd) - set(want))
+        if missing or unused:
+            raise KeyError(f"params_from_jax: missing {missing[:8]}, "
+                           f"unused {unused[:8]}")
+        for k, v in sd.items():
+            if tuple(v.shape) != tuple(want[k].shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} != "
+                                 f"{tuple(want[k].shape)}")
+    return sd

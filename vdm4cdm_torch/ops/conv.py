@@ -1,0 +1,89 @@
+"""Channels-last 3D convolution: counterpart of ``vdm4cdm_tpu/ops/conv.py``.
+
+``conv_nd`` takes x (B, D, H, W, Cin) or a :class:`Pair` and weights in the
+JAX layout (k, k, k, Cin, Cout):
+
+  * k3/s1 with Cin, Cout multiples of 8 runs the hand kernel
+    ``conv3d_k3s1_fwd`` (bias in-kernel, optional GroupNorm sums of the output,
+    optional residual added before the cast);
+  * a Pair splits the weights over its halves, conv(concat(a, b), W) =
+    conv(a, W_a) + conv(b, W_b): the second half's conv takes the first
+    half's output as its residual, so the joined input is never written and
+    the joined output's sums still come from the kernel;
+  * k1 (the ResBlock ``skip_proj``) is a matmul plus bias;
+  * everything else (``conv_in`` 2->32, ``conv_out`` 32->1, the stride-2
+    downsample) goes to ``torch.nn.functional.conv3d``, as the JAX package
+    leaves these to XLA. Circular padding there is an explicit wrap pad and a
+    valid conv; padding is the torch-style symmetric (k//2, k//2).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .kernels import conv3d_k3s1_fwd
+from .kernels.conv3d import supports
+from .pair import Pair
+
+
+def _library_conv(x, w, stride, circular):
+    xc = x.permute(0, 4, 1, 2, 3)
+    wc = w.to(x.dtype).permute(4, 3, 0, 1, 2)
+    pad = w.shape[0] // 2
+    if circular and pad:
+        y = F.conv3d(F.pad(xc, (pad,) * 6, mode="circular"), wc,
+                     stride=stride)
+    else:
+        y = F.conv3d(xc, wc, stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv_nd(
+    x,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding_mode: str = "zeros",
+    emit_stats: bool = False,
+    residual: Optional[torch.Tensor] = None,
+):
+    """y = conv(x, w) + b (+ residual). With ``emit_stats`` returns
+    (y, sums), sums the (B, 2, Cout) f32 (sum y, sum y^2) where the hand
+    kernel produced y, else None."""
+    if padding_mode not in ("zeros", "circular"):
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
+    if isinstance(x, Pair):
+        ca = x.a.shape[-1]
+        if w.shape[-2] != x.channels:
+            raise ValueError(f"w {tuple(w.shape)} for {x.channels} channels")
+        ya = conv_nd(x.a, w[..., :ca, :], b, stride, padding_mode,
+                     residual=residual)
+        return conv_nd(x.b, w[..., ca:, :], None, stride, padding_mode,
+                       emit_stats=emit_stats, residual=ya)
+    if x.ndim != 5 or w.ndim != 5:
+        raise NotImplementedError("the port runs 3D convolutions only")
+    cin, cout = w.shape[-2], w.shape[-1]
+    if x.shape[-1] != cin:
+        raise ValueError(f"x has {x.shape[-1]} channels, w expects {cin}")
+    k = w.shape[0]
+    sums = None
+    if k == 1 and stride == 1:
+        out = x @ w.reshape(cin, cout).to(x.dtype)
+        if b is not None:
+            out = out + b.to(x.dtype)
+        if residual is not None:
+            out = out + residual
+    elif k == 3 and stride == 1 and supports(cin, cout):
+        out, sums = conv3d_k3s1_fwd(x, w, b, residual,
+                                    circular=padding_mode == "circular",
+                                    with_sums=emit_stats)
+    else:
+        out = _library_conv(x, w, stride, padding_mode == "circular")
+        if b is not None:
+            out = out + b.to(out.dtype)
+        if residual is not None:
+            out = out + residual
+    return (out, sums) if emit_stats else out

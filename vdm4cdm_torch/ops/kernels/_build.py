@@ -1,0 +1,67 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each ``csrc/*.cu`` file is compiled on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in ``build/`` at
+the repository root, named by a hash of its source and flags, so an edited
+source rebuilds and an unchanged one loads at once. Nothing runs on import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_log: dict = {}  # source name -> {"seconds": float, "ptxas": str}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, compiled if needed."""
+    with _lock:
+        if source in _libs:
+            return _libs[source]
+        src = CSRC / source
+        key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        out = BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                tmp_out = pathlib.Path(tmp) / out.name
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out), str(src)],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp_out, out)
+            build_log[source] = {"seconds": time.perf_counter() - t0,
+                                 "ptxas": proc.stderr.strip()}
+        lib = ctypes.CDLL(str(out))
+        _libs[source] = lib
+        return lib

@@ -1,0 +1,42 @@
+"""Checks shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_forward_only(name: str, *tensors) -> None:
+    """The kernels of this package have no backward yet: refuse a call whose
+    result autograd would otherwise silently cut off from its inputs."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: call it under torch.no_grad() or "
+            "torch.inference_mode(), or on tensors that do not require grad")
+
+
+def check_operand(name: str, t: torch.Tensor, ndim: int, dtypes=DTYPES,
+                  device: torch.device | None = None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def on_cuda(name: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
+    plain version runs); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device "
+                     f"{x.device}")
