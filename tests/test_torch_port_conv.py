@@ -125,8 +125,9 @@ def test_kernel_wrapper_checks_its_operands():
 
 
 def test_kernel_wrapper_is_forward_only():
-    """No backward kernel yet: a call that autograd would track raises
-    instead of returning an output cut off from its inputs."""
+    """The raw wrapper owns no gradient (``conv_nd``'s Function does): a call
+    that autograd would track raises instead of returning an output cut off
+    from its inputs."""
     x = torch.zeros(1, 4, 4, 4, 8, requires_grad=True)
     w = torch.zeros(3, 3, 3, 8, 8)
     with pytest.raises(RuntimeError, match="forward-only"):

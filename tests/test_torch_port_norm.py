@@ -138,7 +138,7 @@ def test_near_constant_group_no_nan():
 def test_gn_kernel_wrappers_check_and_refuse():
     x = torch.zeros(2, 8, 16)
     a = torch.ones(2, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs an integer seed"):
         gn_apply(x, a, a, "silu", dropout_p=0.1)
     with pytest.raises(ValueError, match="shape"):
         gn_apply(x, torch.ones(2, 8), torch.ones(2, 8))

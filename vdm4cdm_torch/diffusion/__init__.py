@@ -1,4 +1,5 @@
 from .schedule import NoiseSchedule, alpha_sigma, make_schedule
-from .vdm import VDM
+from .vdm import VDM, VDMLosses
 
-__all__ = ["NoiseSchedule", "VDM", "alpha_sigma", "make_schedule"]
+__all__ = ["NoiseSchedule", "VDM", "VDMLosses", "alpha_sigma",
+           "make_schedule"]

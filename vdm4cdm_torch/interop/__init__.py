@@ -1,3 +1,3 @@
-from .from_jax import params_from_jax
+from .from_jax import opt_state_from_jax, params_from_jax
 
-__all__ = ["params_from_jax"]
+__all__ = ["opt_state_from_jax", "params_from_jax"]

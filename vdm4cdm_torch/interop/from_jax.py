@@ -1,4 +1,5 @@
-"""JAX params tree -> state_dict of the port's :class:`VDM`.
+"""JAX params tree -> state_dict of the port's :class:`VDM`, and the JAX
+package's optimizer state -> the port's.
 
 The JAX package's VDM params are ``{"unet": <CUNet tree>, "gamma": {"b", "w"}}``
 with numpy (or array-like) leaves. The port keeps every parameter's JAX name
@@ -11,7 +12,16 @@ attention ``qkv`` kernel (C, 3, heads, hd) with bias (3, heads, hd) and its
     leading underscore;
   * ``mid_attn`` (the attention block) -> ``mid_attn_block``.
 
-Imports neither jax nor the JAX package: it reads plain nested mappings.
+An EMA tree has the params' structure and goes through the same function.
+
+The JAX package's optimizer is ``optax.chain(clip_by_global_norm, adamw)``,
+whose state is the nested tuple ``(clip state, (ScaleByAdamState(count, mu,
+nu), decay state, schedule state))`` with ``mu`` and ``nu`` shaped like the
+params. :func:`opt_state_from_jax` finds the Adam state in it and renames its
+trees the same way.
+
+Imports neither jax nor the JAX package: it reads plain nested mappings and
+(named) tuples with numpy-convertible leaves.
 """
 
 from __future__ import annotations
@@ -69,3 +79,44 @@ def params_from_jax(tree: Mapping[str, Any],
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != "
                                  f"{tuple(want[k].shape)}")
     return sd
+
+
+def _find_adam_state(node):
+    """The first node with ``count``, ``mu`` and ``nu`` in a nest of tuples,
+    namedtuples and mappings."""
+    if isinstance(node, Mapping):
+        if {"count", "mu", "nu"} <= set(node):
+            return node["count"], node["mu"], node["nu"]
+        children = node.values()
+    elif isinstance(node, tuple):
+        if {"count", "mu", "nu"} <= set(getattr(node, "_fields", ())):
+            return node.count, node.mu, node.nu
+        children = node
+    else:
+        return None
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(opt_state: Any,
+                       model: Optional[torch.nn.Module] = None,
+                       moment_dtype: Optional[torch.dtype] = None
+                       ) -> Dict[str, Any]:
+    """The port's optimizer state ``{"count", "mu", "nu"}`` from the JAX
+    package's optax state (CPU tensors; ``mu`` in ``moment_dtype``, default
+    f32, ``nu`` in f32). With ``model``, names and shapes are checked as in
+    :func:`params_from_jax`."""
+    found = _find_adam_state(opt_state)
+    if found is None:
+        raise KeyError("opt_state_from_jax: no (count, mu, nu) Adam state "
+                       "in the given optimizer state")
+    count, mu, nu = found
+    dtype = moment_dtype or torch.float32
+    return {
+        "count": int(np.asarray(count)),
+        "mu": {k: v.to(dtype) for k, v in params_from_jax(mu, model).items()},
+        "nu": params_from_jax(nu, model),
+    }

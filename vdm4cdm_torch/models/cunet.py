@@ -2,7 +2,7 @@
 ``vdm4cdm_tpu/models/cunet.py``.
 
 Same constructor fields as the JAX module (without ``remat*`` and ``ctx``,
-which come with the training and sharding slices), same parameter names and
+which come with the remat and sharding slices), same parameter names and
 layouts, so a JAX params tree maps onto ``state_dict`` by name alone
 (``interop/from_jax.py``):
 
@@ -12,7 +12,12 @@ layouts, so a JAX params tree maps onto ``state_dict`` by name alone
   * each ResBlock's first conv emits the GroupNorm sums that its second norm
     consumes, and its second conv adds the skip connection in-kernel;
   * every decoder skip join stays lazy (:class:`~vdm4cdm_torch.ops.pair.Pair`):
-    joint-statistics GroupNorm, then a weight-split conv.
+    joint-statistics GroupNorm, then a weight-split conv;
+  * in train mode each ResBlock drops activations after its second norm's
+    SiLU, inside the norm kernel, with a mask that is a function of the
+    block's seed and the element index (``ops/kernels/philox.py``). The
+    block's seed is mixed on the host from the step's ``dropout_seed`` and
+    the block's index: no device round trip.
 
 Parameters initialize as the JAX module's do (LeCun-normal kernels, zero
 biases, unit norm scales, zero ``conv_out``, second ResBlock convs and
@@ -31,6 +36,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops.conv import conv_nd
+from ..ops.kernels.philox import mix_seed
 from ..ops.norm import group_norm, group_norm_film
 from ..ops.pair import Pair
 from ..ops.resample import upsample_nearest
@@ -113,12 +119,20 @@ class GroupNorm(nn.Module):
         self.groups = groups
         self.act = act
 
-    def forward(self, x, film=None, ext_sums=None):
-        if film is None:
+    def forward(self, x, film=None, ext_sums=None, dropout_p: float = 0.0,
+                dropout_seed: Optional[int] = None):
+        if film is None and dropout_p == 0.0:
             return group_norm(x, self.scale, self.bias, self.groups,
                               act=self.act, ext_sums=ext_sums)
+        if film is None:
+            bsz = x.a.shape[0] if isinstance(x, Pair) else x.shape[0]
+            zero = torch.zeros(bsz, self.scale.shape[0],
+                               device=self.scale.device)
+            film = (zero, zero)
         return group_norm_film(x, self.scale, self.bias, film[0], film[1],
-                               self.groups, act=self.act, ext_sums=ext_sums)
+                               self.groups, act=self.act, ext_sums=ext_sums,
+                               dropout_p=dropout_p,
+                               dropout_seed=dropout_seed)
 
 
 class ResBlock(nn.Module):
@@ -141,10 +155,11 @@ class ResBlock(nn.Module):
         self.skip_proj = (Conv(cin, features, 1, generator=generator)
                           if cin != features else None)
 
-    def forward(self, x, emb, train: bool = False):
-        if train and self.dropout_prob > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout comes with the training kernels")
+    def forward(self, x, emb, train: bool = False,
+                dropout_seed: Optional[int] = None):
+        p = self.dropout_prob if train else 0.0
+        if p > 0.0 and dropout_seed is None:
+            raise ValueError("train=True with dropout needs a dropout_seed")
         h = self.GroupNorm_0(x)
         # conv1 emits the GroupNorm sums of its output: the second norm skips
         # its sums pass
@@ -152,7 +167,8 @@ class ResBlock(nn.Module):
         film = None
         if self.film is not None and emb is not None:
             film = self.film(F.silu(emb)).chunk(2, dim=-1)
-        h = self.GroupNorm_1(h, film=film, ext_sums=hsums)
+        h = self.GroupNorm_1(h, film=film, ext_sums=hsums, dropout_p=p,
+                             dropout_seed=dropout_seed)
         if self.skip_proj is not None:
             skip = self.skip_proj(x)
         elif isinstance(x, Pair):
@@ -284,10 +300,14 @@ class CUNet(nn.Module):
         s_conditioning: Optional[torch.Tensor] = None,
         v_conditionings: Sequence[torch.Tensor] = (),
         train: bool = False,
+        dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
         """z (B, D, H, W, C); t (B,) or scalar in [0, 1]; s_conditioning
-        (B, D, H, W, Cs); v_conditionings list of (B, d_i). Returns f32
-        (B, D, H, W, C)."""
+        (B, D, H, W, Cs); v_conditionings list of (B, d_i). ``train=True``
+        turns dropout on and then needs the step's integer ``dropout_seed``.
+        Returns f32 (B, D, H, W, C)."""
+        if train and self.dropout_prob > 0.0 and dropout_seed is None:
+            raise ValueError("train=True with dropout needs a dropout_seed")
         if self.s_conditioning_channels:
             if s_conditioning is None:
                 raise ValueError("model expects s_conditioning")
@@ -318,8 +338,15 @@ class CUNet(nn.Module):
             vemb = getattr(self, f"v_dense1_{i}")(F.silu(vemb))
             emb = vemb if emb is None else emb + vemb
 
+        n_blocks = 0
+
         def block(name, h):
-            return getattr(self, name)(h, emb, train)
+            nonlocal n_blocks
+            seed = None
+            if train and self.dropout_prob > 0.0:
+                seed = mix_seed(int(dropout_seed), n_blocks)
+            n_blocks += 1
+            return getattr(self, name)(h, emb, train, seed)
 
         h = self.conv_in(x)
         skips = [h]

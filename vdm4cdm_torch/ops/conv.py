@@ -5,7 +5,9 @@ JAX layout (k, k, k, Cin, Cout):
 
   * k3/s1 with Cin, Cout multiples of 8 runs the hand kernel
     ``conv3d_k3s1_fwd`` (bias in-kernel, optional GroupNorm sums of the output,
-    optional residual added before the cast);
+    optional residual added before the cast) through :class:`Conv3dK3S1`,
+    whose backward is hand kernels too: the forward kernel on the output
+    gradient for dx, ``conv3d_k3s1_dw`` for dw and db;
   * a Pair splits the weights over its halves, conv(concat(a, b), W) =
     conv(a, W_a) + conv(b, W_b): the second half's conv takes the first
     half's output as its residual, so the joined input is never written and
@@ -24,9 +26,46 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .kernels import conv3d_k3s1_fwd
+from .kernels import conv3d_k3s1_dw, conv3d_k3s1_dx, conv3d_k3s1_fwd
 from .kernels.conv3d import supports
 from .pair import Pair
+
+
+class Conv3dK3S1(torch.autograd.Function):
+    """(x, w, bias, residual) -> (y, sums) through ``conv3d_k3s1_fwd``.
+
+    Backward, as the JAX package's ``_bs_bwd_core``: the output gradient is
+    cast to x's dtype; dx is the forward kernel on it with flipped, transposed
+    weights; (dw, db) come from ``conv3d_k3s1_dw`` in f32 and return in the
+    parameters' dtypes; the residual's gradient is the output gradient itself.
+    ``sums`` exists to feed the following GroupNorm, whose dx already carries
+    the whole statistics -> x dependence, so it is non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, circular, with_sums):
+        with torch.no_grad():
+            y, sums = conv3d_k3s1_fwd(x, w, bias, residual, circular=circular,
+                                      with_sums=with_sums)
+        ctx.save_for_backward(x, w)
+        ctx.circular = circular
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        if sums is None:
+            sums = x.new_empty(0)
+        ctx.mark_non_differentiable(sums)
+        return y, sums
+
+    @staticmethod
+    def backward(ctx, ct, _ct_sums):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        ct = ct.to(x.dtype).contiguous()
+        dx = conv3d_k3s1_dx(ct, w, ctx.circular) if need_x else None
+        dw = db = None
+        if need_w or need_b:
+            dw, db = conv3d_k3s1_dw(x, ct, ctx.circular)
+            dw = dw.to(w.dtype) if need_w else None
+            db = db.to(ctx.bias_dtype) if need_b else None
+        return dx, dw, db, (ct if need_r else None), None, None
 
 
 def _library_conv(x, w, stride, circular):
@@ -77,9 +116,10 @@ def conv_nd(
         if residual is not None:
             out = out + residual
     elif k == 3 and stride == 1 and supports(cin, cout):
-        out, sums = conv3d_k3s1_fwd(x, w, b, residual,
-                                    circular=padding_mode == "circular",
-                                    with_sums=emit_stats)
+        out, sums = Conv3dK3S1.apply(x, w, b, residual,
+                                     padding_mode == "circular", emit_stats)
+        if not emit_stats:
+            sums = None
     else:
         out = _library_conv(x, w, stride, padding_mode == "circular")
         if b is not None:

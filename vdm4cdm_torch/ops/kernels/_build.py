@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_source_locks: dict = {}
 _libs: dict = {}
 build_log: dict = {}  # source name -> {"seconds": float, "ptxas": str}
 
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, compiled if needed."""
+    """The loaded library of ``csrc/<source>``, compiled if needed. One lock
+    per source: threads that ask for different sources build side by side."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _libs:
             return _libs[source]
         src = CSRC / source

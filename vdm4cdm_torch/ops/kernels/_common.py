@@ -8,13 +8,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_forward_only(name: str, *tensors) -> None:
-    """The kernels of this package have no backward yet: refuse a call whose
-    result autograd would otherwise silently cut off from its inputs."""
+    """The raw kernel wrappers own no gradient (the autograd Functions of
+    ``ops/conv.py`` and ``ops/norm.py`` call them under ``no_grad`` and run
+    the backward kernels): refuse a call whose result autograd would
+    otherwise silently cut off from its inputs."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} is forward-only: call it under torch.no_grad() or "
-            "torch.inference_mode(), or on tensors that do not require grad")
+            "torch.inference_mode(), on tensors that do not require grad, or "
+            "through conv_nd / norm_affine_act, which own the gradient")
 
 
 def check_operand(name: str, t: torch.Tensor, ndim: int, dtypes=DTYPES,

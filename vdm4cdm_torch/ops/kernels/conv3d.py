@@ -1,5 +1,5 @@
-"""SAME 3x3x3 stride-1 convolution forward: the CUDA kernel and its plain
-version.
+"""SAME 3x3x3 stride-1 convolution, forward and backward: the CUDA kernels and
+their plain versions.
 
 Replaces the Pallas TPU kernel ``vdm4cdm_tpu/ops/pallas/conv3d.py::
 _fwd_kernel`` as reached through ``_conv_pallas_raw_packed`` (the packed,
@@ -15,6 +15,17 @@ memory. The source file says more.
 
 The plain version computes the same function with ``torch.nn.functional.
 conv3d`` in f32. CPU tensors go to it; CUDA tensors go to the kernel.
+
+The backward has two parts. The input gradient is the forward kernel again
+(:func:`conv3d_k3s1_dx`): the same conv of the output gradient with the
+weights flipped in space and transposed in (Cin, Cout), under the same padding
+mode, as the TPU package runs ``_conv_pallas_raw_packed`` on ``ct``. The
+weight and bias gradients are ``conv3d_k3s1_dw``, the kernel
+``csrc/conv3d_dw.cu``, which replaces the Pallas ``_dw_kernel`` (reached
+through ``_conv_pallas_dw``): per tap a GEMM with the voxels as the
+contraction, split over blocks that add their f32 tiles with atomics (the sum
+order is run-dependent), bf16 on the tensor cores and f32 on FMAs. Its plain
+version is 27 shifted matrix products in f32.
 """
 
 from __future__ import annotations
@@ -57,15 +68,33 @@ def conv3d_k3s1_plain(x, w, bias=None, residual=None, circular=False,
     return y.to(x.dtype).contiguous(), sums
 
 
-def _fn():
+def conv3d_k3s1_dw_plain(x, ct, circular=False):
+    """Plain PyTorch version of :func:`conv3d_k3s1_dw` (same arguments): per
+    tap, the f32 product of the shifted, padded x with ct over all voxels."""
+    B, D, H, W, cin = x.shape
+    xp = F.pad(x.float().permute(0, 4, 1, 2, 3), (1,) * 6,
+               mode="circular" if circular else "constant")
+    xp = xp.permute(0, 2, 3, 4, 1)
+    ctf = ct.float().reshape(-1, ct.shape[-1])
+    taps = [xp[:, kz:kz + D, ky:ky + H, kx:kx + W].reshape(-1, cin).T @ ctf
+            for kz in range(3) for ky in range(3) for kx in range(3)]
+    return torch.stack(taps).reshape(3, 3, 3, cin, -1), ctf.sum(0)
+
+
+def _fn(source, name, n_ptrs, n_ints):
     from ._build import library
 
-    fn = library("conv3d_fwd.cu").conv3d_k3s1_fwd
+    fn = getattr(library(source), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i] + [p] * n_ptrs + [i] * n_ints + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _aligned(name, *tensors):
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
 
 
 def conv3d_k3s1_fwd(
@@ -110,17 +139,61 @@ def conv3d_k3s1_fwd(
     out = torch.empty((B, D, H, W, cout), dtype=x.dtype, device=dev)
     sums = (torch.zeros((B, 2, cout), dtype=torch.float32, device=dev)
             if with_sums else None)
-    ptrs = [t.data_ptr() if t is not None else None
-            for t in (x, wt, bias_f, residual, out, sums)]
-    if any(p is not None and p % 16 for p in ptrs):
-        raise ValueError("conv3d_k3s1_fwd needs 16-byte aligned tensors")
+    operands = (x, wt, bias_f, residual, out, sums)
+    _aligned("conv3d_k3s1_fwd", *operands)
+    ptrs = [t.data_ptr() if t is not None else None for t in operands]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn()(_DTYPE_CODE[x.dtype], *ptrs, B, D, H, W, cin, cout,
-                int(bool(circular)), stream)
+    err = _fn("conv3d_fwd.cu", "conv3d_k3s1_fwd", 6, 7)(
+        _DTYPE_CODE[x.dtype], *ptrs, B, D, H, W, cin, cout,
+        int(bool(circular)), stream)
     if err:
         raise RuntimeError(f"conv3d_k3s1_fwd: CUDA error {err} at launch")
     conv3d_k3s1_fwd.launches += 1
     return out, sums
 
 
+def conv3d_k3s1_dx(ct: torch.Tensor, w: torch.Tensor,
+                   circular: bool = False) -> torch.Tensor:
+    """The input gradient of y = conv(x, w): the forward kernel on the output
+    gradient ct (B, D, H, W, Cout) with w (3, 3, 3, Cin, Cout) flipped in
+    space and transposed, same padding mode. Returns (B, D, H, W, Cin) in
+    ct's dtype. Counts as a launch of ``conv3d_k3s1_fwd``."""
+    w_t = w.flip(0, 1, 2).transpose(3, 4)
+    return conv3d_k3s1_fwd(ct, w_t, circular=circular)[0]
+
+
+def conv3d_k3s1_dw(x: torch.Tensor, ct: torch.Tensor,
+                   circular: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dw, db) of y = conv(x, w) + b with SAME k3 s1 padding: x
+    (B, D, H, W, Cin) and the output gradient ct (B, D, H, W, Cout) in one
+    dtype, f32 or bf16. Returns dw (3, 3, 3, Cin, Cout) and db (Cout,), both
+    f32. No autograd of its own."""
+    check_operand("x", x, 5)
+    check_operand("ct", ct, 5, (x.dtype,), x.device)
+    if ct.shape[:4] != x.shape[:4]:
+        raise ValueError(f"ct shape {tuple(ct.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    B, D, H, W, cin = x.shape
+    cout = ct.shape[4]
+    if not supports(cin, cout):
+        raise ValueError(f"channels {cin}->{cout}: need multiples of 8")
+    check_forward_only("conv3d_k3s1_dw", x, ct)
+    if not on_cuda("conv3d_k3s1_dw", x):
+        return conv3d_k3s1_dw_plain(x, ct, circular)
+    dw = torch.zeros((3, 3, 3, cin, cout), dtype=torch.float32,
+                     device=x.device)
+    db = torch.zeros((cout,), dtype=torch.float32, device=x.device)
+    _aligned("conv3d_k3s1_dw", x, ct, dw, db)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _fn("conv3d_dw.cu", "conv3d_k3s1_dw", 4, 7)(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), ct.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), B, D, H, W, cin, cout, int(bool(circular)), stream)
+    if err:
+        raise RuntimeError(f"conv3d_k3s1_dw: CUDA error {err} at launch")
+    conv3d_k3s1_dw.launches += 1
+    return dw, db
+
+
 conv3d_k3s1_fwd.launches = 0
+conv3d_k3s1_dw.launches = 0
