@@ -16,17 +16,25 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 and bound times: the conv forward, its use as the dx pass and
                 the dw kernel (also against autograd through the plain conv),
                 the GroupNorm sums/apply passes (apply also with dropout,
-                which holds the kernel's Philox bits to the plain version's),
-                the GroupNorm backward passes with SiLU on/off and p in
-                {0, 0.1}, and a skip join with a straddling group forward and
-                backward; then the sampler's batch-1 128^3 shapes;
-  4. parity   - eps_hat of the full-width model (chs 32..256) at 32^3, f32,
-                on the card through the kernels against the same weights on
-                the CPU plain path;
-  5. grads    - the same model, batch 2, dropout 0.1 with injected t, eps and
+                which holds the kernel's Philox bits to the plain version's,
+                timed at p = 0.1), the GroupNorm backward passes with SiLU
+                on/off and p in {0, 0.1}, a skip join with a straddling group
+                forward and backward, and the 1x1 projection (``mm1x1_fwd``
+                with and without bias and residual, its use as the dx pass,
+                ``mm1x1_dw``) at every ``skip_proj`` site of the flagship;
+                the sampler's batch-1 128^3 shapes; then every kernel again at
+                the ``sfm`` phase's shapes (bf16, zeros padding, batch 4
+                forward and backward and batch 1 forward, every site), where
+                the ``kernels`` line's times, bounds and errors are taken;
+  4. parity   - eps_hat of the full-width VDM (chs 32..256) and the velocity
+                of the full-width SFM at 32^3, f32, on the card through the
+                kernels against the same weights on the CPU plain path;
+  5. grads    - the same models, batch 2, dropout 0.1 with injected t, eps and
                 seed: the loss and every parameter's gradient on the card
                 against the CPU plain path (the dropout mask is the same
-                function of seed and index on both);
+                function of seed and index on both); then the SFM's loss and
+                gradients with ``remat=True`` against ``remat=False`` on the
+                card;
   6. main     - the flagship sampler (128^3, batch 1, bf16, chs 32..256) via
                 ``VDM.draw_samples`` for a few steps: s/step, s/field at 250
                 steps, peak memory, kernel launches per UNet forward;
@@ -35,15 +43,31 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 step, then timed steps: s/step, voxels/s, peak memory, kernel
                 launches per step, finite loss and gradient norm, parameters
                 changed;
-  8. profile  - device time by kernel and the device's idle share over UNet
-                forwards and over a train step at 128^3;
-  9. the ``kernels`` line (launches from the train phase, and from the main
-     phase as ``launches_sampler``), the raw nvidia-smi line, and last
+  8. sfm      - preset ``trainSFM3D128_c_c`` (128^3, batch 4, bf16, dropout
+                0.1, x0 fed as the spatial conditioning, zeros padding): a
+                warm-up and timed train steps without remat, one step's peak
+                memory with the preset's ``remat=True``, then
+                ``SFM.draw_samples`` with Heun steps at batch 1: s/step,
+                s/field at 250 steps, peak memory, launches per forward;
+  9. ddnm     - ``ddnm_sample`` on the flagship VDM at 32^3, f32, half-box
+                mask, 10 steps with 2 steps of time travel: finite and
+                consistent with the measurement;
+ 10. profile  - device time by kernel and the device's idle share over UNet
+                forwards and over a train step at 128^3 (VDM and SFM);
+ 11. the ``kernels`` line (launches from the sfm phase's train steps, this
+     slice's path, beside ``ms``, ``bound_ms`` and ``max_abs_err`` at that
+     path's 128^3 shape, named in ``shape`` and ``padding``; the earlier
+     paths' launches as ``launches_vdm_train``, ``launches_sampler`` and
+     ``launches_sfm_sampler``), the raw nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
-Every parameter is drawn from a seeded normal at fan-in scale: a fresh model
-has zero ``conv_out`` and zero second ResBlock convs, so its eps_hat is 0 and
-would hide a broken kernel.
+The models are built from their presets' names (``vdm4cdm_torch.presets`` and
+``config.build_model``) with the crop size overridden and ``remat`` off where
+the card is timed. The VDM phases set ``data.kind="grf"`` (periodic synthetic
+fields, circular padding, as this script has always measured them); the SFM
+keeps its preset's zeros padding at a 128^3 crop. Every parameter is drawn
+from a seeded normal at fan-in scale: a fresh model has zero ``conv_out`` and
+zero second ResBlock convs, so its output is 0 and would hide a broken kernel.
 """
 
 from __future__ import annotations
@@ -63,14 +87,16 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# the flagship (bench.py's model, preset trainVDM3D128_c_c)
-FLAGSHIP = dict(chs=(32, 64, 128, 256), s_conditioning_channels=1,
-                v_conditioning_dims=(6,), norm_groups=8, mid_attn=False,
-                dropout_prob=0.1, conv_padding_mode="circular")
+# the two models, by preset: the flagship VDM (bench.py's model) and the SFM
+VDM_PRESET, SFM_PRESET = "trainVDM3D128_c_c", "trainSFM3D128_c_c"
+CHS = (32, 64, 128, 256)
 MAIN_SIZE, MAIN_STEPS, FIELD_STEPS = 128, 3, 250
 PARITY_SIZE = 32
 TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
-PHASES = ("kernels", "parity", "grads", "main", "train", "profile")
+SFM_BATCH, SFM_SIGMA = 4, 0.5
+DDNM_STEPS, DDNM_L = 10, 2
+PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
+          "profile")  # in the order they run
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
@@ -89,6 +115,8 @@ PAIR_CASE = (32, 256, 128, 8)
 #   dtypes: bf16 products are exact in f32)
 #   backward apply: as apply, but f32 gets 1e-4: dx is a difference of terms
 #   up to 1e2 times larger than the result
+#   mm1x1: as the conv (a K-term f32 sum in another order; one bf16
+#   rounding), its dw as the conv's dw
 TOL = {("conv", "float32"): 1e-4, ("conv", "bfloat16"): 1.6e-2,
        ("apply", "float32"): 1e-5, ("apply", "bfloat16"): 1.6e-2,
        ("sums", "float32"): 1e-4, ("sums", "bfloat16"): 1e-4,
@@ -99,6 +127,9 @@ PARITY_TOL = 1e-3  # eps_hat, f32 kernels on the card vs f32 CPU plain path
 # path, each tensor relative to max(max |ref|, 1e-3 of the largest gradient):
 # about 120 kernels deep with atomics and another summation order
 GRADS_TOL = 2e-3
+# remat on against off, both on the card: the recomputed forward repeats the
+# same kernels, whose atomics sum in another order
+REMAT_TOL = 1e-4
 DROPOUT_P = 0.1
 
 
@@ -133,6 +164,19 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_us(fn, iters: int = 200) -> float:
+    """Wall time per call over ``iters`` calls queued without waiting."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
 
 
 def bound_ms(flops: float, nbytes: float, dtype_name: str):
@@ -613,6 +657,140 @@ def check_pair_norm_bwd(torch, size, ca, cb, groups, dtype_name):
     emit(line)
 
 
+def mm1x1_cases():
+    """(size, cin, cout) of every ``skip_proj`` site of the flagship (the
+    decoder's per half of its Pair), and one shape with channel tails."""
+    return [
+        (128, 64, 32), (128, 32, 32),              # up_0_*
+        (64, 32, 64),                              # down_1_0, up_1_2 (skip)
+        (64, 128, 64), (64, 64, 64),               # up_1_*
+        (32, 64, 128),                             # down_2_0, up_2_2 (skip)
+        (32, 256, 128), (32, 128, 128),            # up_2_*
+        (16, 128, 256),                            # down_3_0, up_3_2 (skip)
+        (16, 256, 256),                            # up_3_*
+        (16, 48, 96),                              # channel tails
+    ]
+
+
+def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
+    """``mm1x1_fwd`` with and without bias and residual, its use as the dx
+    pass and ``mm1x1_dw`` against their plain versions; returns the forward
+    (bias and residual) and dw lines."""
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(size * 999 + cin + cout)
+    shape = (batch, size, size, size)
+    x = torch.randn(*shape, cin, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(cin, cout, generator=gen, device="cuda") / math.sqrt(cin)
+    bias = 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    res = torch.randn(*shape, cout, generator=gen, device="cuda").to(dtype)
+    ct = torch.randn(*shape, cout, generator=gen, device="cuda").to(dtype)
+    tol, tol_dw = TOL[("conv", dtype_name)], TOL[("dw", dtype_name)]
+    dims = [batch * size ** 3, cin, cout]
+    with torch.inference_mode():
+        errs = {}
+        for name, args in (("bias_residual", (x, w, bias, res)),
+                           ("bias", (x, w, bias)), ("bare", (x, w))):
+            errs[name] = rel_err(K.mm1x1_fwd(*args), K.mm1x1_plain(*args))
+        dx_abs, dx_err = rel_err(K.mm1x1_dx(ct, w),
+                                 K.mm1x1_plain(ct, w.t()))
+        dw, db = K.mm1x1_dw(x, ct)
+        dw_p, db_p = K.mm1x1_dw_plain(x, ct)
+        torch.cuda.synchronize()
+        fwd = {"phase": "kernel", "kernel": "mm1x1_fwd", "shape": dims,
+               "dtype": dtype_name, "max_abs_err": errs["bias_residual"][0],
+               "rel_err": max(e[1] for e in errs.values()), "tol": tol}
+        fail_unless(fwd["rel_err"] <= tol, "mm1x1_fwd disagrees", fwd)
+        dxl = {"phase": "kernel", "kernel": "mm1x1_fwd (dx pass)",
+               "shape": [dims[0], cout, cin], "dtype": dtype_name,
+               "max_abs_err": dx_abs, "rel_err": dx_err, "tol": tol}
+        fail_unless(dx_err <= tol, "mm1x1 dx pass disagrees", dxl)
+        dwl = {"phase": "kernel", "kernel": "mm1x1_dw", "shape": dims,
+               "dtype": dtype_name,
+               "max_abs_err": (dw - dw_p).abs().max().item(),
+               "rel_err": ((dw - dw_p).abs().max()
+                           / dw_p.abs().max()).item(),
+               "db_rel_err": ((db - db_p).abs().max()
+                              / db_p.abs().max()).item(), "tol": tol_dw}
+        fail_unless(max(dwl["rel_err"], dwl["db_rel_err"]) <= tol_dw,
+                    "mm1x1_dw disagrees", dwl)
+        if timed:
+            rows, elt = dims[0], x.element_size()
+            n = max(5, min(100, int(4e8 // (rows * (cin + cout)))))
+            flops = 2.0 * rows * cin * cout
+            x2, r2, c2 = (t.reshape(rows, -1) for t in (x, res, ct))
+            wd, bd = w.to(dtype), bias.to(dtype)
+            b_ms, b_by = bound_ms(
+                flops, rows * (cin + 2 * cout) * elt + cin * cout * elt,
+                dtype_name)
+            fwd.update(
+                ms=cuda_time_ms(lambda: K.mm1x1_fwd(x, w, bias, res), n),
+                plain_ms=cuda_time_ms(
+                    lambda: K.mm1x1_plain(x, w, bias, res), max(2, n // 4)),
+                library_ms=cuda_time_ms(
+                    lambda: torch.addmm(r2, x2, wd).add_(bd), n),
+                library_call="torch.addmm(residual, x, w) then add_(bias)",
+                bound_ms=b_ms, bound_by=b_by,
+                ms_no_residual=cuda_time_ms(
+                    lambda: K.mm1x1_fwd(x, w, bias), n),
+                library_no_residual_ms=cuda_time_ms(
+                    lambda: torch.addmm(bd, x2, wd), n),
+                bound_no_residual_ms=bound_ms(
+                    flops, rows * (cin + cout) * elt, dtype_name)[0])
+            # the wrapper on the host: wall time of a call in a long run of
+            # unsynchronized calls (the larger of host and device time), and
+            # of the wrapper's re-layout of the weight and bias alone
+            fwd.update(
+                wall_us_per_call=wall_us(
+                    lambda: K.mm1x1_fwd(x, w, bias, res)),
+                relayout_wall_us=wall_us(
+                    lambda: (torch.empty((cout, cin), dtype=dtype,
+                                         device="cuda").copy_(w.t()),
+                             bias.float().contiguous())))
+            dxl.update(
+                ms=cuda_time_ms(lambda: K.mm1x1_dx(ct, w), n),
+                library_ms=cuda_time_ms(lambda: c2 @ wd.t(), n),
+                bound_ms=bound_ms(flops, rows * (cin + cout) * elt,
+                                  dtype_name)[0])
+            b_ms, b_by = bound_ms(
+                flops, rows * (cin + cout) * elt + (cin + 1) * cout * 4,
+                dtype_name)
+            dwl.update(
+                ms=cuda_time_ms(lambda: K.mm1x1_dw(x, ct), n),
+                plain_ms=cuda_time_ms(lambda: K.mm1x1_dw_plain(x, ct),
+                                      max(2, n // 4)),
+                library_ms=cuda_time_ms(
+                    lambda: (x2.t() @ c2, c2.sum(0)), n),
+                library_call="x.T @ ct and ct.sum(0) (two calls, bf16 out)",
+                bound_ms=b_ms, bound_by=b_by)
+    for line in (fwd, dxl, dwl):
+        emit(line)
+    return fwd, dwl
+
+
+def time_dropout_apply(torch, K, size, C, batch):
+    """``gn_apply`` with SiLU at p = 0.1 beside p = 0, bf16 (the check of its
+    values is ``check_dropout_apply``)."""
+    x, _, mean, inv, a, b = norm_inputs(torch, size, C, "bfloat16", batch)
+    scale, shift = a * inv, b - mean * a * inv
+    seed = 0x1234567890ABCDEF ^ (size * C)
+    S = size ** 3
+    n = max(5, min(100, int(4e8 // (batch * S * C))))
+    with torch.inference_mode():
+        line = {"phase": "kernel", "kernel": "gn_apply (dropout, timed)",
+                "shape": [batch, S, C], "dtype": "bfloat16", "p": DROPOUT_P,
+                "ms": cuda_time_ms(lambda: K.gn_apply(
+                    x, scale, shift, "silu", DROPOUT_P, seed), n),
+                "ms_p0": cuda_time_ms(lambda: K.gn_apply(
+                    x, scale, shift, "silu"), n),
+                "plain_ms": cuda_time_ms(lambda: K.gn_apply_plain(
+                    x, scale, shift, True, DROPOUT_P, seed), 3, 1)}
+    line["bound_ms"], line["bound_by"] = bound_ms(
+        6.0 * batch * S * C, 2 * batch * S * C * 2 + 2 * batch * C * 4,
+        "bfloat16")
+    emit(line)
+    return line
+
+
 def phase_kernels(torch, K):
     for size, cin, cout, combos in conv_cases():
         for mode, dtype_name in combos:
@@ -628,48 +806,104 @@ def phase_kernels(torch, K):
     check_conv(torch, K, MAIN_SIZE, 32, 32, "circular", "bfloat16", 1, True)
     check_norm(torch, K, MAIN_SIZE, 32, "bfloat16", 1, True)
 
-    # ---- the backward kernels, at the train step's shapes (batch 2)
-    heads = {}
+    # ---- the backward kernels, at the VDM train step's shapes (batch 2)
     for size, cin, cout, _ in conv_cases():
         for mode, dtype_name in [(m, d) for m in ("circular", "zeros")
                                  for d in ("bfloat16", "float32")]:
-            timed = (mode, dtype_name) == ("circular", "bfloat16")
-            line = check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name,
-                                  TRAIN_BATCH, timed)
-            if timed and (size, cin, cout) == (MAIN_SIZE, 32, 32):
-                heads["conv3d_k3s1_dw"] = line
+            check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name,
+                           TRAIN_BATCH,
+                           (mode, dtype_name) == ("circular", "bfloat16"))
     for size, C in DROPOUT_CASES:
         for dtype_name in ("bfloat16", "float32"):
             check_dropout_apply(torch, K, size, C, dtype_name, TRAIN_BATCH)
+    time_dropout_apply(torch, K, MAIN_SIZE, 32, TRAIN_BATCH)
     for size, C in NORM_CASES:
         for dtype_name in ("bfloat16", "float32"):
             for act, p in (("silu", DROPOUT_P), ("silu", 0.0), (None, 0.0),
                            (None, DROPOUT_P)):
-                timed = dtype_name == "bfloat16" and act == "silu"
-                lines = check_norm_bwd(torch, K, size, C, dtype_name,
-                                       TRAIN_BATCH, act, p, timed)
-                if timed and p > 0 and (size, C) == (MAIN_SIZE, 32):
-                    heads["gn_bwd_sums"], heads["gn_bwd_apply"] = lines
+                check_norm_bwd(torch, K, size, C, dtype_name, TRAIN_BATCH,
+                               act, p,
+                               dtype_name == "bfloat16" and act == "silu")
     for dtype_name in ("bfloat16", "float32"):
         check_pair_norm_bwd(torch, *PAIR_CASE, dtype_name)
-    # the forward kernels at the train step's headline shapes (batch 2)
-    heads["conv3d_k3s1_fwd"] = check_conv(
-        torch, K, MAIN_SIZE, 32, 32, "circular", "bfloat16", TRAIN_BATCH,
-        True)
-    heads["gn_sums"], heads["gn_apply"] = check_norm(
-        torch, K, MAIN_SIZE, 32, "bfloat16", TRAIN_BATCH, True)
+    # the 1x1 projection at every skip_proj site, batch 2
+    for size, cin, cout in mm1x1_cases():
+        for dtype_name in ("bfloat16", "float32"):
+            check_mm1x1(torch, K, size, cin, cout, dtype_name, TRAIN_BATCH,
+                        timed=dtype_name == "bfloat16")
+    return check_sfm_shapes(torch, K)
+
+
+def check_sfm_shapes(torch, K):
+    """Every kernel at the shapes the ``sfm`` phase gives it: bf16, zeros
+    padding, batch 4 (the train steps; forward and backward at every conv,
+    norm and ``skip_proj`` site, since the row splits of the dw kernels and
+    the grids depend on the row count) and batch 1 (the Heun sampler; forward
+    only). Returns the ``kernels`` line's rows: each kernel's times, bound
+    and error at its 128^3 site at batch 4, the shapes whose launches that
+    line counts."""
+    size, mode, dt = MAIN_SIZE, "zeros", "bfloat16"
+    heads = {}
+    for csize, cin, cout, _ in conv_cases():
+        head = (csize, cin, cout) == (size, 32, 32)
+        fwd = check_conv(torch, K, csize, cin, cout, mode, dt, SFM_BATCH,
+                         head)
+        dw = check_conv_bwd(torch, K, csize, cin, cout, mode, dt, SFM_BATCH,
+                            head)
+        if head:
+            heads["conv3d_k3s1_fwd"], heads["conv3d_k3s1_dw"] = fwd, dw
+        check_conv(torch, K, csize, cin, cout, mode, dt, 1, False)
+    for nsize, C in NORM_CASES:
+        head = (nsize, C) == (size, 32)
+        fwd = check_norm(torch, K, nsize, C, dt, SFM_BATCH, head)
+        bwd = check_norm_bwd(torch, K, nsize, C, dt, SFM_BATCH, "silu",
+                             DROPOUT_P, head)
+        check_norm_bwd(torch, K, nsize, C, dt, SFM_BATCH, None, 0.0, False)
+        if head:
+            heads["gn_sums"], heads["gn_apply"] = fwd
+            heads["gn_bwd_sums"], heads["gn_bwd_apply"] = bwd
+        check_norm(torch, K, nsize, C, dt, 1, False)
+    check_dropout_apply(torch, K, size, 32, dt, SFM_BATCH)
+    for batch in (SFM_BATCH, 1):
+        for msize, cin, cout in mm1x1_cases():
+            lines = check_mm1x1(torch, K, msize, cin, cout, dt, batch,
+                                timed=msize == size)
+            if (batch, msize, cin, cout) == (SFM_BATCH, size, 64, 32):
+                heads["mm1x1_fwd"], heads["mm1x1_dw"] = lines
     return heads
 
 
 # --------------------------------------------------------------- the model
 
-def build_vdm(torch, vt, size, dtype, device, seed):
-    net = vt.CUNet(shape=(1, size, size, size), compute_dtype=dtype,
-                   device=device, **FLAGSHIP)
-    vdm = vt.VDM(net, vt.make_schedule("learned_linear", -13.3, 13.3,
-                                       device=device))
-    randomize_(vdm, seed)
-    return vdm.eval()
+def build(vt, name, size, dtype_name, device, seed, **overrides):
+    """The preset's model at crop ``size``, every parameter randomized."""
+    cfg = vt.preset(name, **{"data.cropsize": size, "model.remat": False,
+                             "model.compute_dtype": dtype_name, **overrides})
+    if tuple(cfg.model.chs) != CHS:
+        raise AssertionError(f"{name} is not at full width: {cfg.model.chs}")
+    model = vt.build_model(cfg, device=device)
+    randomize_(model, seed)
+    return model.eval()
+
+
+def build_vdm(vt, size, dtype_name, device, seed):
+    return build(vt, VDM_PRESET, size, dtype_name, device, seed,
+                 **{"data.kind": "grf"})
+
+
+def build_sfm(vt, size, dtype_name, device, seed, **overrides):
+    return build(vt, SFM_PRESET, size, dtype_name, device, seed, **overrides)
+
+
+def sfm_batch(torch, size, batch, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    shape = (batch, size, size, size, 1)
+    x0 = torch.randn(shape, generator=gen)
+    return {"x0": x0.to(device),
+            "x1": (0.6 * x0 + 0.8 * torch.randn(shape, generator=gen)
+                   ).to(device),
+            "conditioning_values": [torch.randn(batch, 6, generator=gen)
+                                    .to(device)]}
 
 
 def conditioning(torch, size, batch, device, seed):
@@ -682,8 +916,8 @@ def conditioning(torch, size, batch, device, seed):
 def phase_parity(torch, vt):
     t0 = time.perf_counter()
     size = PARITY_SIZE
-    gpu = build_vdm(torch, vt, size, torch.float32, "cuda", 1)
-    cpu = build_vdm(torch, vt, size, torch.float32, "cpu", 1)
+    gpu = build_vdm(vt, size, "float32", "cuda", 1)
+    cpu = build_vdm(vt, size, "float32", "cpu", 1)
     s, v = conditioning(torch, size, 2, "cpu", 2)
     z = torch.randn(2, size, size, size, 1,
                     generator=torch.Generator().manual_seed(3))
@@ -692,7 +926,8 @@ def phase_parity(torch, vt):
         ref = cpu.eps_hat(z, t, s, [v])
         got = gpu.eps_hat(z.cuda(), t.cuda(), s.cuda(), [v.cuda()]).cpu()
     abs_err, err = rel_err(got, ref)
-    line = {"phase": "parity", "size": size, "chs": list(FLAGSHIP["chs"]),
+    line = {"phase": "parity", "model": VDM_PRESET, "what": "eps_hat",
+            "size": size, "chs": list(CHS),
             "dtype": "float32", "max_abs_ref": ref.abs().max().item(),
             "max_abs_err": abs_err, "rel_err": err, "tol": PARITY_TOL,
             "seconds": time.perf_counter() - t0}
@@ -700,6 +935,24 @@ def phase_parity(torch, vt):
     if not (torch.isfinite(got).all() and err <= PARITY_TOL
             and ref.abs().max().item() > 0.1):
         raise AssertionError(f"eps_hat parity failed: {line}")
+
+    t0 = time.perf_counter()
+    gpu = build_sfm(vt, size, "float32", "cuda", 12)
+    cpu = build_sfm(vt, size, "float32", "cpu", 12)
+    with torch.inference_mode():
+        ref = cpu.velocity(z, t, [v], s)
+        got = gpu.velocity(z.cuda(), t.cuda(), [v.cuda()], s.cuda()).cpu()
+    abs_err, err = rel_err(got, ref)
+    line = {"phase": "parity", "model": SFM_PRESET, "what": "velocity",
+            "size": size, "chs": list(CHS), "dtype": "float32",
+            "padding": gpu.unet.conv_padding_mode,
+            "max_abs_ref": ref.abs().max().item(), "max_abs_err": abs_err,
+            "rel_err": err, "tol": PARITY_TOL,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not (torch.isfinite(got).all() and err <= PARITY_TOL
+            and ref.abs().max().item() > 0.1):
+        raise AssertionError(f"velocity parity failed: {line}")
 
 
 def loss_batch(torch, size, batch, device, seed):
@@ -710,37 +963,91 @@ def loss_batch(torch, size, batch, device, seed):
             "conditioning_values": [v]}
 
 
+def loss_and_grads(model, batch, t, eps, seed):
+    losses = model.loss(batch, train=True, t=t, eps=eps, dropout_seed=seed)
+    losses.loss.backward()
+    return losses, {k: p.grad.detach().cpu()
+                    for k, p in model.named_parameters()}
+
+
+def grad_errors(got_g, ref_g):
+    """Each tensor's max error relative to max(max |ref|, 1e-3 of the largest
+    gradient); returns (errors by name, the largest gradient)."""
+    top = max(g.abs().max().item() for g in ref_g.values())
+    return {k: (got_g[k] - g).abs().max().item()
+            / max(g.abs().max().item(), 1e-3 * top)
+            for k, g in ref_g.items()}, top
+
+
 def phase_grads(torch, vt, K):
-    """Loss and every parameter's gradient of the full-width model at 32^3,
-    f32, batch 2, dropout 0.1: the card through the kernels against the CPU
-    plain path, with the same injected t, eps and dropout seed."""
-    t0 = time.perf_counter()
+    """Loss and every parameter's gradient of the full-width VDM and SFM at
+    32^3, f32, batch 2, dropout 0.1: the card through the kernels against the
+    CPU plain path, with the same injected t, eps and dropout seed. Then the
+    SFM on the card with every ResBlock rematerialized against none."""
     size = PARITY_SIZE
     gen = torch.Generator().manual_seed(7)
     t = torch.tensor([0.35, 0.85])
     eps = torch.randn(2, size, size, size, 1, generator=gen)
     seed = 0x5EED5EED5EED
-    out = {}
-    K.reset_launch_counts()
-    for device in ("cuda", "cpu"):
-        vdm = build_vdm(torch, vt, size, torch.float32, device, 1)
-        batch = loss_batch(torch, size, 2, device, 8)
-        losses = vdm.loss(batch, train=True, t=t, eps=eps, dropout_seed=seed)
-        losses.loss.backward()
-        out[device] = (losses, {k: p.grad.detach().cpu()
-                                for k, p in vdm.named_parameters()})
-    counts = K.launch_counts()
+    makers = {
+        VDM_PRESET: (lambda dev: build_vdm(vt, size, "float32", dev, 1),
+                     lambda dev: loss_batch(torch, size, 2, dev, 8)),
+        SFM_PRESET: (lambda dev: build_sfm(vt, size, "float32", dev, 12,
+                                           **{"model.sfm_sigma": SFM_SIGMA}),
+                     lambda dev: sfm_batch(torch, size, 2, dev, 13)),
+    }
+    for name, (make, make_batch) in makers.items():
+        t0 = time.perf_counter()
+        out = {}
+        K.reset_launch_counts()
+        for device in ("cuda", "cpu"):
+            out[device] = loss_and_grads(make(device), make_batch(device), t,
+                                         eps, seed)
+        counts = K.launch_counts()
+        check_grads(torch, name, out, counts, size, t0)
+
+    # remat: the same loss and gradients with every ResBlock recomputed
+    t0 = time.perf_counter()
+    make, make_batch = makers[SFM_PRESET]
+    out, fwd_counts = {}, {}
+    for remat in (False, True):
+        model = build_sfm(vt, size, "float32", "cuda", 12,
+                          **{"model.sfm_sigma": SFM_SIGMA,
+                             "model.remat": remat})
+        K.reset_launch_counts()
+        out[remat] = loss_and_grads(model, make_batch("cuda"), t, eps, seed)
+        fwd_counts[remat] = K.launch_counts()
+        n_remat = len(model.unet.remat_block_names())
+    errs, top = grad_errors(out[True][1], out[False][1])
+    worst = max(errs, key=errs.get)
+    loss_err = abs(out[True][0].loss.item() - out[False][0].loss.item()) \
+        / max(1.0, abs(out[False][0].loss.item()))
+    forward = ("conv3d_k3s1_fwd", "gn_sums", "gn_apply", "mm1x1_fwd")
+    line = {"phase": "grads", "model": SFM_PRESET, "what": "remat on vs off",
+            "size": size, "batch": 2, "dtype": "float32",
+            "dropout": DROPOUT_P, "remat_blocks": n_remat,
+            "loss_rel_err": loss_err, "rel_err": errs[worst],
+            "worst_param": worst, "tol": REMAT_TOL,
+            "launches_remat": fwd_counts[True],
+            "launches_no_remat": fwd_counts[False],
+            "seconds": time.perf_counter() - t0}
+    fail_unless(errs[worst] <= REMAT_TOL and loss_err <= REMAT_TOL
+                and n_remat > 0 and all(
+                    fwd_counts[True][k] > fwd_counts[False][k]
+                    for k in forward), "remat check failed", line)
+    emit(line)
+
+
+def check_grads(torch, name, out, counts, size, t0):
     (got_l, got_g), (ref_l, ref_g) = out["cuda"], out["cpu"]
     loss_err = {k: abs(getattr(got_l, k).item() - getattr(ref_l, k).item())
                 / max(1.0, abs(getattr(ref_l, k).item()))
                 for k in ref_l._fields}
-    top = max(g.abs().max().item() for g in ref_g.values())
-    errs = {k: (got_g[k] - g).abs().max().item()
-            / max(g.abs().max().item(), 1e-3 * top)
-            for k, g in ref_g.items()}
+    errs, top = grad_errors(got_g, ref_g)
     worst = max(errs, key=errs.get)
     finite = all(bool(torch.isfinite(g).all()) for g in got_g.values())
-    line = {"phase": "grads", "size": size, "batch": 2, "dtype": "float32",
+    line = {"phase": "grads", "model": name, "size": size, "batch": 2,
+            "dtype": "float32",
             "dropout": DROPOUT_P, "loss": ref_l.loss.item(),
             "loss_rel_err": max(loss_err.values()),
             "n_params": len(errs), "rel_err": errs[worst],
@@ -752,18 +1059,24 @@ def phase_grads(torch, vt, K):
     emit(line)
 
 
-def phase_train(torch, vt, K, kernels):
-    """The flagship train step at 128^3, batch 2, bf16, dropout 0.1, bf16
-    first moment, EMA: one warm-up step, then timed steps."""
-    size, batch_size = MAIN_SIZE, TRAIN_BATCH
-    vdm = build_vdm(torch, vt, size, torch.bfloat16, "cuda", 9)
-    batch = loss_batch(torch, size, batch_size, "cuda", 10)
+def resident_gib(torch) -> float:
+    """Device memory held right now. Read where a phase starts, it is what
+    the earlier phases' models and states still hold: the phase's peak
+    memory includes it."""
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed):
+    """One warm-up step, then ``n_steps`` timed steps of ``make_train_step``
+    (Adam 3e-4, clip 0.5, bf16 first moment, EMA): checks that they gave
+    finite, changed parameters through every kernel, and returns the
+    measurements and (state, step, batch, generator)."""
     opt = vt.make_optimizer(learning_rate=3e-4, grad_clip=0.5,
                             moment_dtype=torch.bfloat16)
-    state = vt.TrainState(0, vdm, opt.init(vdm), vt.init_ema(vdm))
-    step = vt.make_train_step(vdm, opt, ema_decay=EMA_DECAY)
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    before = {k: p.detach().clone() for k, p in vdm.named_parameters()}
+    state = vt.TrainState(0, model, opt.init(model), vt.init_ema(model))
+    step = vt.make_train_step(model, opt, ema_decay=EMA_DECAY)
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
     # warm-up: Triton specializations and cuDNN plans for these shapes
     state, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
@@ -771,7 +1084,7 @@ def phase_train(torch, vt, K, kernels):
     K.reset_launch_counts()
     t0 = time.perf_counter()
     history = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         state, metrics = step(state, batch, gen)
         history.append(metrics)
     torch.cuda.synchronize()
@@ -781,39 +1094,49 @@ def phase_train(torch, vt, K, kernels):
     losses = [m["loss"].item() for m in history]
     norms = [m["grad_norm"].item() for m in history]
     moved = max((p.detach() - before[k]).abs().max().item()
-                for k, p in vdm.named_parameters())
+                for k, p in model.named_parameters())
     ema_moved = max((state.ema_params[k] - before[k]).abs().max().item()
                     for k in before)
     finite = all(math.isfinite(v) for v in losses + norms) and all(
-        bool(torch.isfinite(p).all()) for p in vdm.parameters())
-    line = {"phase": "train", "size": size, "batch": batch_size,
-            "dtype": "bfloat16", "dropout": DROPOUT_P,
-            "moment_dtype": "bfloat16", "ema_decay": EMA_DECAY,
-            "chs": list(FLAGSHIP["chs"]), "steps": TRAIN_STEPS,
-            "seconds": dt, "s_per_step": dt / TRAIN_STEPS,
-            "voxels_per_s": batch_size * size ** 3 * TRAIN_STEPS / dt,
-            "peak_mem_gib": peak / 2 ** 30, "launches": counts,
-            "launches_per_step": {k: c / TRAIN_STEPS
-                                  for k, c in counts.items()},
-            "loss": losses, "grad_norm": norms, "finite": finite,
-            "max_param_change": moved, "max_ema_change": ema_moved,
-            "state_step": state.step}
-    emit(line)
-    if not finite or moved <= 0.0 or ema_moved <= 0.0:
-        raise AssertionError("the train step did not give finite, changed "
-                             "parameters")
-    if state.step != TRAIN_STEPS + 1:
-        raise AssertionError(f"state.step is {state.step}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {counts}")
-    for name, c in counts.items():
-        kernels[name]["launches"] = c
-    return state, step, batch, gen
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    voxels = next(iter(batch.values())).numel()
+    facts = {"dtype": "bfloat16", "dropout": DROPOUT_P,
+             "moment_dtype": "bfloat16", "ema_decay": EMA_DECAY,
+             "chs": list(CHS), "steps": n_steps, "seconds": dt,
+             "s_per_step": dt / n_steps,
+             "voxels_per_s": voxels * n_steps / dt,
+             "peak_mem_gib": peak / 2 ** 30, "launches": counts,
+             "launches_per_step": {k: c / n_steps for k, c in counts.items()},
+             "loss": losses, "grad_norm": norms, "finite": finite,
+             "max_param_change": moved, "max_ema_change": ema_moved,
+             "state_step": state.step}
+    fail_unless(finite and moved > 0.0 and ema_moved > 0.0
+                and state.step == n_steps + 1 and min(counts.values()) > 0,
+                "the train steps did not give finite, changed parameters "
+                "through every kernel", facts)
+    return facts, (state, step, batch, gen)
+
+
+def phase_train(torch, vt, K, kernels):
+    """The flagship train step at 128^3, batch 2, bf16, dropout 0.1, bf16
+    first moment, EMA: one warm-up step, then timed steps."""
+    size = MAIN_SIZE
+    held = resident_gib(torch)
+    vdm = build_vdm(vt, size, "bfloat16", "cuda", 9)
+    batch = loss_batch(torch, size, TRAIN_BATCH, "cuda", 10)
+    facts, trainer = timed_train_steps(torch, vt, K, vdm, batch, TRAIN_STEPS,
+                                       11)
+    emit({"phase": "train", "preset": VDM_PRESET, "size": size,
+          "batch": TRAIN_BATCH, "padding": vdm.score_model.conv_padding_mode,
+          "held_by_earlier_phases_gib": held, **facts})
+    for name, c in facts["launches"].items():
+        kernels[name]["launches_vdm_train"] = c
+    return trainer
 
 
 def phase_main(torch, vt, K, kernels):
     size = MAIN_SIZE
-    vdm = build_vdm(torch, vt, size, torch.bfloat16, "cuda", 4)
+    vdm = build_vdm(vt, size, "bfloat16", "cuda", 4)
     s, v = conditioning(torch, size, 1, "cuda", 5)
     gen = torch.Generator(device="cuda")
     kw = dict(batch_size=1, s_conditioning=s, v_conditionings=[v])
@@ -831,7 +1154,7 @@ def phase_main(torch, vt, K, kernels):
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(out).all())
     line = {"phase": "main", "size": size, "batch": 1, "dtype": "bfloat16",
-            "chs": list(FLAGSHIP["chs"]), "steps": MAIN_STEPS,
+            "chs": list(CHS), "steps": MAIN_STEPS,
             "seconds": dt, "s_per_step": dt / MAIN_STEPS,
             "s_per_field_250": dt / MAIN_STEPS * FIELD_STEPS,
             "peak_mem_gib": peak / 2 ** 30,
@@ -843,14 +1166,117 @@ def phase_main(torch, vt, K, kernels):
     emit(line)
     if not finite or tuple(out.shape) != (1, size, size, size, 1):
         raise AssertionError("sampler output is not a finite field")
-    sampler = ("conv3d_k3s1_fwd", "gn_sums", "gn_apply")
-    if min(counts[k] for k in sampler) <= 0:
+    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
-    for name in sampler:
+    for name in FORWARD_KERNELS:
         kernels[name]["launches_sampler"] = counts[name]
     return vdm, s, v
 
 
+def phase_sfm(torch, vt, K, kernels):
+    """This slice's path at full width: train steps of ``trainSFM3D128_c_c``
+    at 128^3, batch 4, bf16 without remat, one step's peak memory with the
+    preset's remat, then Heun sampler steps at batch 1."""
+    size = MAIN_SIZE
+    trainer = peak_no_remat = None
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        held = resident_gib(torch)
+        sfm = build_sfm(vt, size, "bfloat16", "cuda", 14,
+                        **{"model.remat": remat})
+        batch = sfm_batch(torch, size, SFM_BATCH, "cuda", 15)
+        facts, run = timed_train_steps(torch, vt, K, sfm, batch,
+                                       1 if remat else TRAIN_STEPS, 16)
+        line = {"phase": "sfm", "what": "train", "preset": SFM_PRESET,
+                "remat": remat,
+                "remat_blocks": len(sfm.unet.remat_block_names()),
+                "size": size, "batch": SFM_BATCH,
+                "padding": sfm.unet.conv_padding_mode,
+                "held_by_earlier_phases_gib": held, **facts}
+        if remat:
+            line["peak_mem_gib_no_remat"] = peak_no_remat
+        else:
+            peak_no_remat = facts["peak_mem_gib"]
+            trainer = run
+            for name, c in facts["launches"].items():
+                kernels[name]["launches"] = c
+        emit(line)
+        del sfm, batch, run
+
+    state = trainer[0]
+    sfm = state.model.eval()
+    x0 = trainer[2]["x0"][:1]
+    v = [trainer[2]["conditioning_values"][0][:1]]
+    sfm.draw_samples(x0, 1, v, method="heun")
+    torch.cuda.synchronize()
+    held = resident_gib(torch)  # with this model and its training state
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sfm.draw_samples(x0, MAIN_STEPS, v, method="heun")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    finite = bool(torch.isfinite(out).all())
+    line = {"phase": "sfm", "what": "draw_samples", "preset": SFM_PRESET,
+            "method": "heun", "size": size, "batch": 1, "dtype": "bfloat16",
+            "steps": MAIN_STEPS, "forwards_per_step": 2, "seconds": dt,
+            "s_per_step": dt / MAIN_STEPS,
+            "s_per_field_250": dt / MAIN_STEPS * FIELD_STEPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "held_before_sampling_gib": held, "launches": counts,
+            "launches_per_forward": {k: c / (2 * MAIN_STEPS)
+                                     for k, c in counts.items()},
+            "out_shape": list(out.shape), "finite": finite,
+            "out_std": out.float().std().item()}
+    emit(line)
+    if not finite or tuple(out.shape) != (1, size, size, size, 1):
+        raise AssertionError("SFM sampler output is not a finite field")
+    if min(counts[k] for k in FORWARD_KERNELS) <= 0:
+        raise AssertionError(f"a kernel was not launched: {counts}")
+    for name in FORWARD_KERNELS:
+        kernels[name]["launches_sfm_sampler"] = counts[name]
+    return trainer
+
+
+def phase_ddnm(torch, vt, K):
+    """``ddnm_sample`` on the full-width VDM at 32^3, f32: inpainting the
+    half of the box that a mask hides. The projection makes the result agree
+    with the measurement whatever the weights."""
+    t0 = time.perf_counter()
+    size = PARITY_SIZE
+    vdm = build_vdm(vt, size, "float32", "cuda", 17)
+    s, v = conditioning(torch, size, 1, "cuda", 18)
+    x = torch.randn(1, size, size, size, 1, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(19))
+    mask = torch.zeros_like(x)
+    mask[:, : size // 2] = 1.0
+    A = AT = lambda z: z * mask  # noqa: E731
+    y = A(x)
+    K.reset_launch_counts()
+    x_hat = vt.ddnm_sample(
+        vdm, y, A, AT, n_sampling_steps=DDNM_STEPS, l=DDNM_L,
+        s_conditioning=s, v_conditionings=[v],
+        generator=torch.Generator(device="cuda").manual_seed(20))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    consistency = (A(x_hat) - y).abs().max().item()
+    forwards = sum(min(DDNM_L, i) + 1 for i in range(DDNM_STEPS))
+    line = {"phase": "ddnm", "size": size, "dtype": "float32",
+            "steps": DDNM_STEPS, "l": DDNM_L, "unet_forwards": forwards,
+            "consistency": consistency, "tol": 1e-4,
+            "finite": bool(torch.isfinite(x_hat).all()),
+            "out_shape": list(x_hat.shape),
+            "hole_std": x_hat[:, size // 2:].std().item(),
+            "launches": counts, "seconds": time.perf_counter() - t0}
+    fail_unless(line["finite"] and consistency < 1e-4
+                and tuple(x_hat.shape) == tuple(x.shape)
+                and counts["conv3d_k3s1_fwd"] == 59 * forwards,
+                "ddnm check failed", line)
+    emit(line)
+
+
+FORWARD_KERNELS = ("conv3d_k3s1_fwd", "gn_sums", "gn_apply", "mm1x1_fwd")
 _TRITON = {"sums_kernel": "gn_sums", "apply_kernel": "gn_apply",
            "bwd_sums_kernel": "gn_bwd_sums",
            "bwd_apply_kernel": "gn_bwd_apply"}
@@ -861,6 +1287,10 @@ def _category(name: str) -> str:
         return "conv3d_k3s1_fwd (forward and dx)"
     if "conv3d_dw_kernel" in name:
         return "conv3d_k3s1_dw"
+    if "mm1x1_fwd_kernel" in name:
+        return "mm1x1_fwd (forward and dx)"
+    if "mm1x1_dw_kernel" in name:
+        return "mm1x1_dw"
     if name in _TRITON:
         return _TRITON[name]
     if any(k in name for k in ("xmma", "cudnn", "convolve", "Nhwc", "Nchw",
@@ -869,14 +1299,14 @@ def _category(name: str) -> str:
     if "multi_tensor" in name or "foreach" in name.lower():
         return "optimizer (foreach)"
     if "nvjet" in name or "gemm" in name:
-        return "matmul (skip_proj, dense)"
+        return "matmul (cuBLAS: dense layers)"
     return "glue (copies, pads, casts, small elementwise)"
 
 
-def phase_profile(torch, vdm, s, v):
-    """Device time by kernel over two UNet forwards at 128^3 (after a
-    profiled warm-up forward) and the device's idle share against an
-    unprofiled forward's wall time."""
+def phase_profile(torch, forward, tag="forward"):
+    """Device time by kernel over two UNet forwards at 128^3, batch 1
+    (``forward(z, t)``, after a profiled warm-up forward) and the device's
+    idle share against an unprofiled forward's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -885,19 +1315,19 @@ def phase_profile(torch, vdm, s, v):
     n_active = 2
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
-        vdm.eps_hat(z, t, s, [v])
+        forward(z, t)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_active):
-            vdm.eps_hat(z, t, s, [v])
+            forward(z, t)
         torch.cuda.synchronize()
         forward_ms = (time.perf_counter() - t0) * 1e3 / n_active
         with profile(activities=acts):  # warm-up: the tracer's start-up
-            vdm.eps_hat(z, t, s, [v])
+            forward(z, t)
             torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             for _ in range(n_active):
-                vdm.eps_hat(z, t, s, [v])
+                forward(z, t)
             torch.cuda.synchronize()
     by_name, by_cat = {}, {}
     for e in prof.events():
@@ -908,11 +1338,11 @@ def phase_profile(torch, vdm, s, v):
         cat = _category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
+    (OUT_DIR / f"chip_smoke_profile_{tag}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=50))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "profile", "forward_ms": forward_ms,
+    emit({"phase": f"profile_{tag}", "forward_ms": forward_ms,
           "device_busy_ms_per_forward": busy_ms,
           "idle_share": (max(0.0, 1.0 - busy_ms / forward_ms)
                          if busy_ms > 0 else None),
@@ -921,7 +1351,7 @@ def phase_profile(torch, vdm, s, v):
           "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top]})
 
 
-def phase_profile_train(torch, state, step, batch, gen):
+def phase_profile_train(torch, state, step, batch, gen, tag="train"):
     """Device time by kernel over one train step at 128^3 (after a profiled
     warm-up step) and the device's idle share against unprofiled steps."""
     from torch.autograd import DeviceType
@@ -950,11 +1380,11 @@ def phase_profile_train(torch, state, step, batch, gen):
         cat = _category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
-    (OUT_DIR / "chip_smoke_profile_train.txt").write_text(
+    (OUT_DIR / f"chip_smoke_profile_{tag}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile_train", "step_ms": step_ms,
+    emit({"phase": f"profile_{tag}", "step_ms": step_ms,
           "device_busy_ms_per_step": busy_ms,
           "idle_share": (max(0.0, 1.0 - busy_ms / step_ms)
                          if busy_ms > 0 else None),
@@ -976,8 +1406,12 @@ META = {
                     "vdm4cdm_tpu/ops/pallas/fused_norm.py:435"),
     "gn_bwd_apply": ("triton", "vdm4cdm_torch/ops/kernels/fused_norm.py",
                      "vdm4cdm_tpu/ops/pallas/fused_norm.py:455"),
+    "mm1x1_fwd": ("cuda", "vdm4cdm_torch/csrc/lanemm.cu",
+                  "vdm4cdm_tpu/ops/pallas/lanemm.py:56"),
+    "mm1x1_dw": ("cuda", "vdm4cdm_torch/csrc/lanemm.cu",
+                 "vdm4cdm_tpu/ops/pallas/lanemm.py:64"),
 }
-SOURCES = ("conv3d_fwd.cu", "conv3d_dw.cu")
+SOURCES = ("conv3d_fwd.cu", "conv3d_dw.cu", "lanemm.cu")
 
 
 def phase_build(_build):
@@ -1041,17 +1475,30 @@ def main() -> int:
         phase_parity(torch, vt)
     if "grads" in phases:
         phase_grads(torch, vt, K)
-    sampler = trainer = None
+    heads = heads or {k: {} for k in META}
+    sampler = trainer = sfm_trainer = None
     if "main" in phases:
-        sampler = phase_main(torch, vt, K, heads or {
-            k: {} for k in ("conv3d_k3s1_fwd", "gn_sums", "gn_apply")})
+        sampler = phase_main(torch, vt, K, heads)
     if "train" in phases:
-        trainer = phase_train(torch, vt, K, heads or {k: {} for k in META})
+        trainer = phase_train(torch, vt, K, heads)
+    if "sfm" in phases:
+        sfm_trainer = phase_sfm(torch, vt, K, heads)
+    if "ddnm" in phases:
+        phase_ddnm(torch, vt, K)
+    # the profiler runs last, so that tracing cannot touch a timed phase
     if "profile" in phases:
         if sampler is not None:
-            phase_profile(torch, *sampler)
+            vdm, s, v = sampler
+            phase_profile(torch, lambda z, t: vdm.eps_hat(z, t, s, [v]))
         if trainer is not None:
             phase_profile_train(torch, *trainer)
+        if sfm_trainer is not None:
+            phase_profile_train(torch, *sfm_trainer, tag="sfm_train")
+            sfm, batch = sfm_trainer[0].model, sfm_trainer[2]
+            x0 = batch["x0"][:1]
+            vs = [batch["conditioning_values"][0][:1]]
+            phase_profile(torch, lambda z, t: sfm.velocity(z, t, vs, x0),
+                          tag="sfm_forward")
     if phases != list(PHASES):
         print(card, flush=True)
         emit({"phase": "partial", "phases": phases,
@@ -1060,12 +1507,16 @@ def main() -> int:
 
     emit({"kernels": [
         {"name": name, "route": META[name][0], "source": META[name][1],
-         "replaces": META[name][2], "launches": h["launches"],
+         "replaces": META[name][2], "shape": h["shape"],
+         "dtype": h["dtype"], "padding": h.get("mode"),
+         "launches": h["launches"],
+         "launches_vdm_train": h["launches_vdm_train"],
          "launches_sampler": h.get("launches_sampler"),
+         "launches_sfm_sampler": h.get("launches_sfm_sampler"),
          "max_abs_err": h["max_abs_err"], "ms": h["ms"],
          "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
          "bound_by": h["bound_by"], "library_ms": h["library_ms"]}
-        for name, h in heads.items()]})
+        for name, h in ((n, heads[n]) for n in META)]})
     print(card, flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,13 +6,17 @@ vdm4cdm_tpu; its hot operations are hand-written kernels for the NVIDIA H100
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
-from .diffusion import VDM, VDMLosses, make_schedule
+from .config import ExperimentConfig, build_model
+from .diffusion import VDM, VDMLosses, ddnm_sample, make_schedule
+from .flows import SFM, SFMLosses
 from .interop import opt_state_from_jax, params_from_jax
 from .models import CUNet
+from .presets import PRESETS, preset
 from .train import (TrainState, init_ema, make_eval_step, make_lr_schedule,
                     make_optimizer, make_train_step)
 
-__all__ = ["CUNet", "TrainState", "VDM", "VDMLosses", "init_ema",
-           "make_eval_step", "make_lr_schedule", "make_optimizer",
+__all__ = ["CUNet", "ExperimentConfig", "PRESETS", "SFM", "SFMLosses",
+           "TrainState", "VDM", "VDMLosses", "build_model", "ddnm_sample",
+           "init_ema", "make_eval_step", "make_lr_schedule", "make_optimizer",
            "make_schedule", "make_train_step", "opt_state_from_jax",
-           "params_from_jax"]
+           "params_from_jax", "preset"]

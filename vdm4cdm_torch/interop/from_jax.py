@@ -1,5 +1,5 @@
-"""JAX params tree -> state_dict of the port's :class:`VDM`, and the JAX
-package's optimizer state -> the port's.
+"""JAX params tree -> state_dict of the port's :class:`VDM` or :class:`SFM`,
+and the JAX package's optimizer state -> the port's.
 
 The JAX package's VDM params are ``{"unet": <CUNet tree>, "gamma": {"b", "w"}}``
 with numpy (or array-like) leaves. The port keeps every parameter's JAX name
@@ -7,7 +7,9 @@ and layout: conv kernels (k, k, k, Cin, Cout), dense kernels (in, out), the
 attention ``qkv`` kernel (C, 3, heads, hd) with bias (3, heads, hd) and its
 ``proj`` kernel (heads, hd, C). So the mapping is by name alone:
 
-  * ``unet`` -> ``score_model``, ``gamma`` -> ``schedule``;
+  * ``unet`` -> ``score_model``, ``gamma`` -> ``schedule``; an SFM tree is
+    ``{"unet": ...}`` with no ``gamma`` and keeps ``unet`` (the port's SFM
+    holds its velocity net under that name);
   * the unnamed flax submodules ``_GroupNorm_i`` / ``_Conv_i`` lose their
     leading underscore;
   * ``mid_attn`` (the attention block) -> ``mid_attn_block``.
@@ -31,17 +33,18 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-_TOP = {"unet": "score_model", "gamma": "schedule"}
+_TOP_VDM = {"unet": "score_model", "gamma": "schedule"}
+_TOP_SFM = {"unet": "unet"}
 
 
-def _rename(path):
-    top = _TOP.get(path[0])
+def _rename(path, tops):
+    top = tops.get(path[0])
     if top is None:
         raise KeyError(f"unknown top-level key {path[0]!r}: expected "
-                       f"{sorted(_TOP)}")
+                       f"{sorted(tops)}")
     out = [top]
     for i, part in enumerate(path[1:]):
-        if i == 0 and top == "score_model" and part == "mid_attn":
+        if i == 0 and path[0] == "unet" and part == "mid_attn":
             part = "mid_attn_block"
         out.append(part.lstrip("_"))
     return ".".join(out)
@@ -58,14 +61,15 @@ def _flatten(tree: Mapping, prefix=()):
 def params_from_jax(tree: Mapping[str, Any],
                     model: Optional[torch.nn.Module] = None
                     ) -> Dict[str, torch.Tensor]:
-    """Map a JAX VDM params tree onto the port's state_dict names (f32 CPU
-    tensors). With ``model``, every key and shape is checked against
+    """Map a JAX VDM or SFM params tree (the latter has no ``gamma``) onto
+    the port's state_dict names (f32 CPU tensors). With ``model``, every key and shape is checked against
     ``model.state_dict()``: a parameter the tree lacks, or a tree leaf the
     model has no place for, raises ``KeyError``; a shape mismatch raises
     ``ValueError``."""
+    tops = _TOP_VDM if "gamma" in tree else _TOP_SFM
     sd = {}
     for path, leaf in _flatten(tree):
-        sd[_rename(path)] = torch.from_numpy(
+        sd[_rename(path, tops)] = torch.from_numpy(
             np.array(leaf, dtype=np.float32, copy=True))
     if model is not None:
         want = model.state_dict()

@@ -1,9 +1,8 @@
 """CUNet: the conditional 3D UNet behind the VDM, counterpart of
 ``vdm4cdm_tpu/models/cunet.py``.
 
-Same constructor fields as the JAX module (without ``remat*`` and ``ctx``,
-which come with the remat and sharding slices), same parameter names and
-layouts, so a JAX params tree maps onto ``state_dict`` by name alone
+Same constructor fields as the JAX module (without ``ctx``, which comes with
+the sharding slice), same parameter names and layouts, so a JAX params tree maps onto ``state_dict`` by name alone
 (``interop/from_jax.py``):
 
   * activations are channels-last (B, D, H, W, C) in ``compute_dtype``;
@@ -17,7 +16,14 @@ layouts, so a JAX params tree maps onto ``state_dict`` by name alone
     SiLU, inside the norm kernel, with a mask that is a function of the
     block's seed and the element index (``ops/kernels/philox.py``). The
     block's seed is mixed on the host from the step's ``dropout_seed`` and
-    the block's index: no device round trip.
+    the block's index: no device round trip;
+  * ``remat`` / ``remat_levels`` / ``remat_blocks`` choose ResBlocks whose
+    activations are not kept for the backward but recomputed
+    (``torch.utils.checkpoint``): a block is checkpointed if ``remat and
+    (remat_levels is None or level < remat_levels)`` or its name (``down_{l}_
+    {b}``, ``mid_0``, ``mid_1``, ``up_{l}_{b}``; the bottleneck counts as the
+    last level) is in ``remat_blocks``. The recomputed forward regenerates
+    the same dropout mask from (seed, index), so no RNG state is kept.
 
 Parameters initialize as the JAX module's do (LeCun-normal kernels, zero
 biases, unit norm scales, zero ``conv_out``, second ResBlock convs and
@@ -33,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.conv import conv_nd
@@ -229,6 +236,9 @@ class CUNet(nn.Module):
         conv_padding_mode: str = "zeros",
         num_res_blocks: int = 2,
         compute_dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        remat_levels: Optional[int] = None,
+        remat_blocks: Sequence[str] = (),
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -247,6 +257,9 @@ class CUNet(nn.Module):
         self.conv_padding_mode = conv_padding_mode
         self.num_res_blocks = num_res_blocks
         self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.remat_levels = remat_levels
+        self.remat_blocks = tuple(remat_blocks)
 
         g, pm, ng = generator, conv_padding_mode, norm_groups
         c0 = self.chs[0]
@@ -292,6 +305,27 @@ class CUNet(nn.Module):
         self.norm_out = GroupNorm(h, ng, act="silu")
         self.conv_out = Conv(h, shape[0], 3, padding_mode=pm, zero_init=True)
         self.to(dev)
+
+    def _block_levels(self):
+        """(name, level) of every ResBlock, in the order the forward runs
+        them; the bottleneck blocks count as the last level."""
+        last = len(self.chs) - 1
+        for level in range(len(self.chs)):
+            for blk in range(self.num_res_blocks):
+                yield f"down_{level}_{blk}", level
+        yield "mid_0", last
+        yield "mid_1", last
+        for level in reversed(range(len(self.chs))):
+            for blk in range(self.num_res_blocks + 1):
+                yield f"up_{level}_{blk}", level
+
+    def remat_block_names(self) -> Tuple[str, ...]:
+        """The ResBlocks that a differentiated forward checkpoints."""
+        def use(name, level):
+            by_level = self.remat and (self.remat_levels is None
+                                       or level < self.remat_levels)
+            return by_level or name in self.remat_blocks
+        return tuple(n for n, lv in self._block_levels() if use(n, lv))
 
     def forward(
         self,
@@ -339,6 +373,8 @@ class CUNet(nn.Module):
             emb = vemb if emb is None else emb + vemb
 
         n_blocks = 0
+        rematted = (self.remat_block_names() if torch.is_grad_enabled()
+                    else ())
 
         def block(name, h):
             nonlocal n_blocks
@@ -346,6 +382,10 @@ class CUNet(nn.Module):
             if train and self.dropout_prob > 0.0:
                 seed = mix_seed(int(dropout_seed), n_blocks)
             n_blocks += 1
+            if name in rematted:
+                return checkpoint(getattr(self, name), h, emb, train, seed,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             return getattr(self, name)(h, emb, train, seed)
 
         h = self.conv_in(x)

@@ -12,9 +12,14 @@ JAX layout (k, k, k, Cin, Cout):
     conv(a, W_a) + conv(b, W_b): the second half's conv takes the first
     half's output as its residual, so the joined input is never written and
     the joined output's sums still come from the kernel;
-  * k1 (the ResBlock ``skip_proj``) is a matmul plus bias;
+  * k1/s1 (the ResBlock ``skip_proj``) with Cin, Cout multiples of 8 runs
+    the hand kernel ``mm1x1_fwd`` (bias and the optional residual added
+    in-kernel before the one cast) through :class:`Conv1x1`, whose backward
+    is ``mm1x1_dx`` (the forward kernel on the transposed weight) and
+    ``mm1x1_dw``; over a Pair the second half's product takes the first
+    half's output as its residual, as for k3;
   * everything else (``conv_in`` 2->32, ``conv_out`` 32->1, the stride-2
-    downsample) goes to ``torch.nn.functional.conv3d``, as the JAX package
+    downsample, a k1 outside the multiples of 8) goes to ``torch.nn.functional.conv3d``, as the JAX package
     leaves these to XLA. Circular padding there is an explicit wrap pad and a
     valid conv; padding is the torch-style symmetric (k//2, k//2).
 """
@@ -26,7 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .kernels import conv3d_k3s1_dw, conv3d_k3s1_dx, conv3d_k3s1_fwd
+from .kernels import (conv3d_k3s1_dw, conv3d_k3s1_dx, conv3d_k3s1_fwd,
+                      mm1x1_dw, mm1x1_dx, mm1x1_fwd)
 from .kernels.conv3d import supports
 from .pair import Pair
 
@@ -66,6 +72,38 @@ class Conv3dK3S1(torch.autograd.Function):
             dw = dw.to(w.dtype) if need_w else None
             db = db.to(ctx.bias_dtype) if need_b else None
         return dx, dw, db, (ct if need_r else None), None, None
+
+
+class Conv1x1(torch.autograd.Function):
+    """(x, w, bias, residual) -> y through ``mm1x1_fwd``, w in the conv
+    layout (1, 1, 1, Cin, Cout).
+
+    Backward, as the JAX package's ``lane_matmul``: the output gradient is
+    cast to x's dtype; dx is the forward kernel on it with the transposed
+    weight; (dw, db) come from ``mm1x1_dw`` in f32 and return in the
+    parameters' dtypes; the residual's gradient is the output gradient
+    itself."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual):
+        with torch.no_grad():
+            y = mm1x1_fwd(x, w.reshape(w.shape[-2:]), bias, residual)
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad
+        ct = ct.to(x.dtype).contiguous()
+        dx = mm1x1_dx(ct, w.reshape(w.shape[-2:])) if need_x else None
+        dw = db = None
+        if need_w or need_b:
+            dw, db = mm1x1_dw(x, ct)
+            dw = dw.to(w.dtype).reshape(w.shape) if need_w else None
+            db = db.to(ctx.bias_dtype) if need_b else None
+        return dx, dw, db, (ct if need_r else None)
 
 
 def _library_conv(x, w, stride, circular):
@@ -109,12 +147,8 @@ def conv_nd(
         raise ValueError(f"x has {x.shape[-1]} channels, w expects {cin}")
     k = w.shape[0]
     sums = None
-    if k == 1 and stride == 1:
-        out = x @ w.reshape(cin, cout).to(x.dtype)
-        if b is not None:
-            out = out + b.to(x.dtype)
-        if residual is not None:
-            out = out + residual
+    if k == 1 and stride == 1 and supports(cin, cout):
+        out = Conv1x1.apply(x, w, b, residual)
     elif k == 3 and stride == 1 and supports(cin, cout):
         out, sums = Conv3dK3S1.apply(x, w, b, residual,
                                      padding_mode == "circular", emit_stats)

@@ -41,6 +41,16 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def c_function(source: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<source>`` (compiled if needed), taking
+    ``argtypes`` and returning the launch's ``cudaGetLastError()`` as int."""
+    fn = getattr(library(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, compiled if needed. One lock
     per source: threads that ask for different sources build side by side."""

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 DTYPES = (torch.float32, torch.bfloat16)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # as the C entries take it
 
 
 def check_forward_only(name: str, *tensors) -> None:
@@ -20,11 +21,15 @@ def check_forward_only(name: str, *tensors) -> None:
             "through conv_nd / norm_affine_act, which own the gradient")
 
 
-def check_operand(name: str, t: torch.Tensor, ndim: int, dtypes=DTYPES,
-                  device: torch.device | None = None) -> None:
+def check_operand(name: str, t: torch.Tensor, ndim: int | None,
+                  dtypes=DTYPES, device: torch.device | None = None) -> None:
+    """``ndim=None`` takes any (..., channels) with at least two dims."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.ndim != ndim:
+    if ndim is None and t.ndim < 2:
+        raise ValueError(f"{name} must be (..., channels), got "
+                         f"{tuple(t.shape)}")
+    if ndim is not None and t.ndim != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
@@ -32,6 +37,12 @@ def check_operand(name: str, t: torch.Tensor, ndim: int, dtypes=DTYPES,
         raise ValueError(f"{name} must be contiguous")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def check_aligned(name: str, *tensors) -> None:
+    """The CUDA kernels copy 16-byte vectors."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
 
 
 def on_cuda(name: str, x: torch.Tensor) -> bool:

@@ -36,9 +36,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._common import check_forward_only, check_operand, on_cuda
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from ._common import (DTYPE_CODE, check_aligned, check_forward_only,
+                      check_operand, on_cuda)
 
 
 def supports(cin: int, cout: int) -> bool:
@@ -82,19 +81,10 @@ def conv3d_k3s1_dw_plain(x, ct, circular=False):
 
 
 def _fn(source, name, n_ptrs, n_ints):
-    from ._build import library
+    from ._build import c_function
 
-    fn = getattr(library(source), name)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * n_ptrs + [i] * n_ints + [p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _aligned(name, *tensors):
-    if any(t is not None and t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} needs 16-byte aligned tensors")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return c_function(source, name, [i] + [p] * n_ptrs + [i] * n_ints + [p])
 
 
 def conv3d_k3s1_fwd(
@@ -140,11 +130,11 @@ def conv3d_k3s1_fwd(
     sums = (torch.zeros((B, 2, cout), dtype=torch.float32, device=dev)
             if with_sums else None)
     operands = (x, wt, bias_f, residual, out, sums)
-    _aligned("conv3d_k3s1_fwd", *operands)
+    check_aligned("conv3d_k3s1_fwd", *operands)
     ptrs = [t.data_ptr() if t is not None else None for t in operands]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn("conv3d_fwd.cu", "conv3d_k3s1_fwd", 6, 7)(
-        _DTYPE_CODE[x.dtype], *ptrs, B, D, H, W, cin, cout,
+        DTYPE_CODE[x.dtype], *ptrs, B, D, H, W, cin, cout,
         int(bool(circular)), stream)
     if err:
         raise RuntimeError(f"conv3d_k3s1_fwd: CUDA error {err} at launch")
@@ -184,10 +174,10 @@ def conv3d_k3s1_dw(x: torch.Tensor, ct: torch.Tensor,
     dw = torch.zeros((3, 3, 3, cin, cout), dtype=torch.float32,
                      device=x.device)
     db = torch.zeros((cout,), dtype=torch.float32, device=x.device)
-    _aligned("conv3d_k3s1_dw", x, ct, dw, db)
+    check_aligned("conv3d_k3s1_dw", x, ct, dw, db)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _fn("conv3d_dw.cu", "conv3d_k3s1_dw", 4, 7)(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), ct.data_ptr(), dw.data_ptr(),
+        DTYPE_CODE[x.dtype], x.data_ptr(), ct.data_ptr(), dw.data_ptr(),
         db.data_ptr(), B, D, H, W, cin, cout, int(bool(circular)), stream)
     if err:
         raise RuntimeError(f"conv3d_k3s1_dw: CUDA error {err} at launch")

@@ -8,6 +8,12 @@ the EMA **in place** and returns the same :class:`TrainState` with its step
 advanced. Metrics are 0-d tensors on the model's device (the loss fields plus
 the gradient norm before the clip): the step itself reads nothing back.
 
+The model is a :class:`~vdm4cdm_torch.diffusion.vdm.VDM` or a
+:class:`~vdm4cdm_torch.flows.sfm.SFM`: both take ``loss(batch, generator,
+train=, dropout_seed=)`` and return a named tuple whose ``loss`` field is
+differentiated and whose every field becomes a metric (an SFM's only field is
+``loss``; its batch is ``{"x0", "x1", "conditioning_values"}``).
+
 The step's dropout seed is mixed on the host from the generator's initial
 seed and the step number, so the same generator seed and state give the same
 masks and no device round trip is needed.
@@ -31,8 +37,8 @@ def make_train_step(
     ema_decay: float = 0.0,
 ) -> Callable[[TrainState, dict, torch.Generator], Tuple[TrainState, Metrics]]:
     """Returns ``step(state, batch, generator) -> (state, metrics)`` for
-    ``model`` (a :class:`~vdm4cdm_torch.diffusion.vdm.VDM`), which must be
-    ``state.model``. Updates in place."""
+    ``model`` (a VDM or an SFM), which must be ``state.model``. Updates in
+    place."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         if state.model is not model:
