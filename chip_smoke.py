@@ -52,13 +52,37 @@ while developing and then prints no ``kernels`` or ``ok`` line):
   9. ddnm     - ``ddnm_sample`` on the flagship VDM at 32^3, f32, half-box
                 mask, 10 steps with 2 steps of time travel: finite and
                 consistent with the measurement;
- 10. profile  - device time by kernel and the device's idle share over UNet
+ 10. sharded  - the spatially sharded (``sp``) path: the parent spawns two
+                ranks on cuda:0, joined over gloo (NCCL refuses two ranks
+                on one device; gloo stages the halo planes through pinned
+                host memory), each seeing exactly the shapes of a rank of a
+                real sp = 2 run. Each rank holds the z-halo kernels
+                (forward with bias, residual and sums, dx, dw + db) against
+                their plain versions at its flagship slab shapes (bf16 and
+                f32, circular and zeros); holds the sharded against the
+                unsharded port on the card: eps_hat of the full-width VDM
+                at 32^3 f32, the loss and every gradient of one sharded
+                step (dropout 0), parameters bitwise equal across ranks
+                after two steps, the SFM's Heun sampler (5 steps); then
+                times a warm-up and 3 sharded VDM train steps at 128^3,
+                batch 2, bf16, dropout 0.1, and 3 steps of the sharded VDM
+                sampler at batch 1 (s/step, per-rank peak memory, the wall
+                time in ppermute and all_reduce, the bytes staged through
+                the host, per-rank launches). Rank 0 alone times the z-halo
+                kernels and the norm kernels at its slab shapes (their CP
+                use) while rank 1 waits. The ranks send their lines to the
+                parent, which prints them. These times are those of two
+                processes sharing one card through host memory: no
+                multi-card figure;
+ 11. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM);
- 11. the ``kernels`` line (launches from the sfm phase's train steps, this
+ 12. the ``kernels`` line (launches from the sfm phase's train steps, this
      slice's path, beside ``ms``, ``bound_ms`` and ``max_abs_err`` at that
      path's 128^3 shape, named in ``shape`` and ``padding``; the earlier
      paths' launches as ``launches_vdm_train``, ``launches_sampler`` and
-     ``launches_sfm_sampler``), the raw nvidia-smi line, and last
+     ``launches_sfm_sampler``; the sharded train steps' launches on rank 0 as
+     ``launches_sharded``, which is also the ``launches`` of the z-halo rows
+     and of the norm kernels' CP rows), the raw nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 The models are built from their presets' names (``vdm4cdm_torch.presets`` and
@@ -96,7 +120,7 @@ TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
 SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
-          "profile")  # in the order they run
+          "sharded", "profile")  # in the order they run
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
@@ -131,12 +155,25 @@ GRADS_TOL = 2e-3
 # same kernels, whose atomics sum in another order
 REMAT_TOL = 1e-4
 DROPOUT_P = 0.1
+# the sharded phase: sp ranks sharing cuda:0, their job's time limit, the
+# SFM sampler's steps; eps_hat and the SFM samples, sharded against
+# unsharded on the card in f32: the same kernels' arithmetic, but the
+# GroupNorm sums all-reduced from two halves and the conv's z taps read
+# from exchanged planes, in another order -> 1e-4
+SHARDED_RANKS, SHARDED_TIMEOUT, SFM_SHARDED_STEPS = 2, 900.0, 5
+SHARDED_TOL = 1e-4
 
 
 LINES_FILE = OUT_DIR / "chip_smoke_lines.jsonl"  # every line, written through
+# in a rank of the sharded phase, the list its lines go to (the parent
+# prints them); None in the parent
+_SINK = None
 
 
 def emit(obj) -> None:
+    if _SINK is not None:
+        _SINK.append(obj)
+        return
     line = json.dumps(obj)
     print(line, flush=True)
     with open(LINES_FILE, "a") as fh:
@@ -298,12 +335,13 @@ def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
     return line
 
 
-def check_norm(torch, K, size, C, dtype_name, batch, timed):
+def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
+    """``S`` voxels (default size^3)."""
     import torch.nn.functional as F
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(size * 7 + C)
-    S = size ** 3
+    S = S or size ** 3
     x = (1.5 * torch.randn(batch, S, C, generator=gen, device="cuda")
          + 0.4).to(dtype)
     a = 1.0 + 0.3 * torch.randn(batch, C, generator=gen, device="cuda")
@@ -478,10 +516,10 @@ def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
     return line
 
 
-def norm_inputs(torch, size, C, dtype_name, batch, groups=8):
+def norm_inputs(torch, size, C, dtype_name, batch, groups=8, S=None):
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(size * 11 + C)
-    S = size ** 3
+    S = S or size ** 3
     x = (1.5 * torch.randn(batch, S, C, generator=gen, device="cuda")
          + 0.4).to(dtype)
     ct = torch.randn(batch, S, C, generator=gen, device="cuda").to(dtype)
@@ -532,11 +570,14 @@ def check_dropout_apply(torch, K, size, C, dtype_name, batch):
     emit(line)
 
 
-def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed):
+def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
+                   S=None):
+    """``S`` voxels (default size^3)."""
     import torch.nn.functional as F
 
-    x, ct, mean, inv, a, b = norm_inputs(torch, size, C, dtype_name, batch)
-    S, groups = size ** 3, 8
+    S, groups = S or size ** 3, 8
+    x, ct, mean, inv, a, b = norm_inputs(torch, size, C, dtype_name, batch,
+                                         S=S)
     count = float(S * (C // groups))
     seed = 0x0FEDCBA987654321 ^ (size * C)
     silu = act == "silu"
@@ -875,24 +916,29 @@ def check_sfm_shapes(torch, K):
 
 # --------------------------------------------------------------- the model
 
-def build(vt, name, size, dtype_name, device, seed, **overrides):
-    """The preset's model at crop ``size``, every parameter randomized."""
+def build(vt, name, size, dtype_name, device, seed, ctx=None, **overrides):
+    """The preset's model at crop ``size``, every parameter randomized (from
+    the seed alone: the ranks of the sharded phase get equal parameters);
+    split over ``ctx``'s sp ranks when it is given."""
+    if ctx is not None:
+        overrides["parallel.n_sp"] = ctx.size
     cfg = vt.preset(name, **{"data.cropsize": size, "model.remat": False,
                              "model.compute_dtype": dtype_name, **overrides})
     if tuple(cfg.model.chs) != CHS:
         raise AssertionError(f"{name} is not at full width: {cfg.model.chs}")
-    model = vt.build_model(cfg, device=device)
+    model = vt.build_model(cfg, device=device, ctx=ctx)
     randomize_(model, seed)
     return model.eval()
 
 
-def build_vdm(vt, size, dtype_name, device, seed):
-    return build(vt, VDM_PRESET, size, dtype_name, device, seed,
-                 **{"data.kind": "grf"})
+def build_vdm(vt, size, dtype_name, device, seed, ctx=None, **overrides):
+    return build(vt, VDM_PRESET, size, dtype_name, device, seed, ctx,
+                 **{"data.kind": "grf", **overrides})
 
 
-def build_sfm(vt, size, dtype_name, device, seed, **overrides):
-    return build(vt, SFM_PRESET, size, dtype_name, device, seed, **overrides)
+def build_sfm(vt, size, dtype_name, device, seed, ctx=None, **overrides):
+    return build(vt, SFM_PRESET, size, dtype_name, device, seed, ctx,
+                 **overrides)
 
 
 def sfm_batch(torch, size, batch, device, seed):
@@ -1055,7 +1101,8 @@ def check_grads(torch, name, out, counts, size, t0):
             "launches": counts, "seconds": time.perf_counter() - t0}
     fail_unless(finite and errs[worst] <= GRADS_TOL
                 and line["loss_rel_err"] <= 1e-4 and top > 1e-3
-                and min(counts.values()) > 0, "gradient parity failed", line)
+                and min(counts[k] for k in UNSHARDED_KERNELS) > 0,
+                "gradient parity failed", line)
     emit(line)
 
 
@@ -1066,11 +1113,15 @@ def resident_gib(torch) -> float:
     return torch.cuda.memory_allocated() / 2 ** 30
 
 
-def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed):
+def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed,
+                      kernels=None, shard=None):
     """One warm-up step, then ``n_steps`` timed steps of ``make_train_step``
     (Adam 3e-4, clip 0.5, bf16 first moment, EMA): checks that they gave
-    finite, changed parameters through every kernel, and returns the
-    measurements and (state, step, batch, generator)."""
+    finite, changed parameters through every kernel of ``kernels`` (default
+    the unsharded path's), and returns the measurements and (state, step,
+    batch, generator). With ``shard`` (a rank's ShardCtx) the measurements
+    add its collectives' counters over the timed steps."""
+    kernels = kernels or UNSHARDED_KERNELS
     opt = vt.make_optimizer(learning_rate=3e-4, grad_clip=0.5,
                             moment_dtype=torch.bfloat16)
     state = vt.TrainState(0, model, opt.init(model), vt.init_ema(model))
@@ -1081,6 +1132,8 @@ def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed):
     state, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if shard is not None:
+        shard.stats.reset()
     K.reset_launch_counts()
     t0 = time.perf_counter()
     history = []
@@ -1110,8 +1163,11 @@ def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed):
              "loss": losses, "grad_norm": norms, "finite": finite,
              "max_param_change": moved, "max_ema_change": ema_moved,
              "state_step": state.step}
+    if shard is not None:
+        facts["comm"] = shard.stats.as_dict()
     fail_unless(finite and moved > 0.0 and ema_moved > 0.0
-                and state.step == n_steps + 1 and min(counts.values()) > 0,
+                and state.step == n_steps + 1
+                and min(counts[k] for k in kernels) > 0,
                 "the train steps did not give finite, changed parameters "
                 "through every kernel", facts)
     return facts, (state, step, batch, gen)
@@ -1129,8 +1185,8 @@ def phase_train(torch, vt, K, kernels):
     emit({"phase": "train", "preset": VDM_PRESET, "size": size,
           "batch": TRAIN_BATCH, "padding": vdm.score_model.conv_padding_mode,
           "held_by_earlier_phases_gib": held, **facts})
-    for name, c in facts["launches"].items():
-        kernels[name]["launches_vdm_train"] = c
+    for name in UNSHARDED_KERNELS:
+        kernels[name]["launches_vdm_train"] = facts["launches"][name]
     return trainer
 
 
@@ -1198,8 +1254,8 @@ def phase_sfm(torch, vt, K, kernels):
         else:
             peak_no_remat = facts["peak_mem_gib"]
             trainer = run
-            for name, c in facts["launches"].items():
-                kernels[name]["launches"] = c
+            for name in UNSHARDED_KERNELS:
+                kernels[name]["launches"] = facts["launches"][name]
         emit(line)
         del sfm, batch, run
 
@@ -1274,6 +1330,412 @@ def phase_ddnm(torch, vt, K):
                 and counts["conv3d_k3s1_fwd"] == 59 * forwards,
                 "ddnm check failed", line)
     emit(line)
+
+
+# ----------------------------------------------------------- sharded phase
+
+def zhalo_cases():
+    """(slab planes, size, cin, cout, modes x dtypes) of the z-halo kernels
+    at a rank's shapes of the flagship split over two ranks: the conv sites
+    of ``conv_cases`` with half the planes. The main path runs bf16 in both
+    padding modes (the VDM circular, the SFM zeros); the flagship's first
+    and deepest sites and the channel tails get f32 too."""
+    full = [(m, d) for m in ("circular", "zeros")
+            for d in ("bfloat16", "float32")]
+    bf16 = [("circular", "bfloat16"), ("zeros", "bfloat16")]
+    return [(size // SHARDED_RANKS, size, cin, cout,
+             full if (size, cin, cout) in ((128, 32, 32), (16, 256, 256),
+                                           (16, 48, 96)) else bf16)
+            for size, cin, cout, _ in conv_cases()]
+
+
+def check_zhalo(torch, K, local, size, cin, cout, mode, dtype_name, batch,
+                timed):
+    """The three z-halo kernels on a haloed slab (batch, local + 2, size,
+    size, cin) against their plain versions: the forward with bias, residual
+    and sums, dx, and dw + db. Returns their lines by kernel name."""
+    import torch.nn.functional as F
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(
+        local * 1000 + cin * 3 + cout)
+    plane = (size, size)
+    xh = torch.randn(batch, local + 2, *plane, cin, generator=gen,
+                     device="cuda").to(dtype)
+    w = torch.randn(3, 3, 3, cin, cout, generator=gen, device="cuda")
+    w = w / math.sqrt(27 * cin)
+    bias = 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    res = torch.randn(batch, local, *plane, cout, generator=gen,
+                      device="cuda").to(dtype)
+    ct = torch.randn(batch, local, *plane, cout, generator=gen,
+                     device="cuda").to(dtype)
+    circ = mode == "circular"
+    with torch.no_grad():
+        y, s = K.conv3d_k3s1_zhalo_fwd(xh, w, bias, res, circ, True)
+        yr, sr = K.conv3d_k3s1_zhalo_plain(xh, w, bias, res, circ, True)
+        dx = K.conv3d_k3s1_zhalo_dx(ct, w, circ)
+        dxr = K.conv3d_k3s1_zhalo_dx_plain(ct, w, circ)
+        dw, db = K.conv3d_k3s1_zhalo_dw(xh, ct, circ)
+        dwr, dbr = K.conv3d_k3s1_zhalo_dw_plain(xh, ct, circ)
+        torch.cuda.synchronize()
+    shape = [batch, local + 2, size, size, cin, cout]
+    base = {"phase": "kernel", "shape": shape, "mode": mode,
+            "dtype": dtype_name}
+    tol, s_tol = TOL[("conv", dtype_name)], TOL[("sums", dtype_name)]
+    dw_tol = TOL[("dw", dtype_name)]
+    lines = {}
+    abs_err, err = rel_err(y, yr)
+    _, s_err = rel_err(s / sr.abs().max(), sr / sr.abs().max())
+    lines["conv3d_k3s1_zhalo_fwd"] = dict(
+        base, kernel="conv3d_k3s1_zhalo_fwd", max_abs_err=abs_err,
+        rel_err=err, tol=tol, sums_rel_err=s_err, sums_tol=s_tol)
+    fail_unless(err <= tol and s_err <= s_tol,
+                "conv3d_k3s1_zhalo_fwd disagrees",
+                lines["conv3d_k3s1_zhalo_fwd"])
+    abs_err, err = rel_err(dx, dxr)
+    lines["conv3d_k3s1_zhalo_dx"] = dict(
+        base, kernel="conv3d_k3s1_zhalo_dx", max_abs_err=abs_err,
+        rel_err=err, tol=tol)
+    fail_unless(err <= tol, "conv3d_k3s1_zhalo_dx disagrees",
+                lines["conv3d_k3s1_zhalo_dx"])
+
+    def scaled(got, ref):
+        return ((got - ref).abs().max() / ref.abs().max()).item()
+
+    lines["conv3d_k3s1_zhalo_dw"] = dict(
+        base, kernel="conv3d_k3s1_zhalo_dw",
+        max_abs_err=(dw - dwr).abs().max().item(), rel_err=scaled(dw, dwr),
+        db_rel_err=scaled(db, dbr), tol=dw_tol)
+    fail_unless(max(scaled(dw, dwr), scaled(db, dbr)) <= dw_tol,
+                "conv3d_k3s1_zhalo_dw disagrees",
+                lines["conv3d_k3s1_zhalo_dw"])
+    if timed:
+        n = max(3, min(30, int(1e7 // (batch * local * size ** 2))))
+        elt = xh.element_size()
+        vin, vout = batch * (local + 2) * size ** 2, batch * local * size ** 2
+        flops = 2.0 * 27 * cin * cout * vout
+        wbytes = 27 * cin * cout * elt
+        pad = (1, 1, 1, 1, 0, 0)
+        xc = xh.permute(0, 4, 1, 2, 3)
+        xp = F.pad(xc, pad, mode="circular") if circ else F.pad(xc, pad)
+        wc = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+        ctc = ct.permute(0, 4, 1, 2, 3)
+        ctp = F.pad(ctc, pad[:4] + (2, 2))
+        if circ:
+            ctp = F.pad(F.pad(ctc, (0, 0, 0, 0, 2, 2)), pad, mode="circular")
+        wtc = w.to(dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+        biasc = bias.to(dtype)
+        timings = {
+            "conv3d_k3s1_zhalo_fwd": (
+                lambda: K.conv3d_k3s1_zhalo_fwd(xh, w, bias, res, circ, True),
+                lambda: K.conv3d_k3s1_zhalo_plain(xh, w, bias, res, circ,
+                                                  True),
+                lambda: F.conv3d(xp, wc, biasc),
+                "F.conv3d valid in z on the in-plane padded slab",
+                (vin * cin + 2 * vout * cout) * elt + wbytes),
+            "conv3d_k3s1_zhalo_dx": (
+                lambda: K.conv3d_k3s1_zhalo_dx(ct, w, circ),
+                lambda: K.conv3d_k3s1_zhalo_dx_plain(ct, w, circ),
+                lambda: F.conv3d(ctp, wtc),
+                "F.conv3d on ct padded by 2 zero planes in z, flipped "
+                "transposed weights",
+                (vout * cout + vin * cin) * elt + wbytes),
+            "conv3d_k3s1_zhalo_dw": (
+                lambda: K.conv3d_k3s1_zhalo_dw(xh, ct, circ),
+                lambda: K.conv3d_k3s1_zhalo_dw_plain(xh, ct, circ),
+                lambda: torch.nn.grad.conv3d_weight(
+                    xp, (cout, cin, 3, 3, 3), ctc),
+                "torch.nn.grad.conv3d_weight on the in-plane padded slab "
+                "(no db)",
+                (vin * cin + vout * cout) * elt + (27 * cin * cout + cout)
+                * 4),
+        }
+        for name, (kern, plain, lib, lib_call, nbytes) in timings.items():
+            b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+            lines[name].update(
+                ms=cuda_time_ms(kern, n), plain_ms=cuda_time_ms(plain, 2, 1),
+                library_ms=cuda_time_ms(lib, n), library_call=lib_call,
+                bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+    for line in lines.values():
+        emit(line)
+    return lines
+
+
+def params_digest(model, state) -> str:
+    """A hash of the parameters, the EMA and both moments, byte for byte."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = [p for _, p in model.named_parameters()]
+    tensors += [state.ema_params[k] for k, _ in model.named_parameters()]
+    for key in ("mu", "nu"):
+        tensors += [state.opt_state[key][k]
+                    for k, _ in model.named_parameters()]
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_checks(torch, vt, K, ctx):
+    """The sharded port against the unsharded one on the card, at 32^3 f32:
+    eps_hat, the loss and every gradient of one step (dropout 0), two real
+    train steps (for the parameters' digest), the SFM's Heun sampler.
+    Returns the digest."""
+    from vdm4cdm_torch.parallel import (local_slab, make_sharded_sfm_sampler,
+                                        mean_over_mesh_)
+
+    size = PARITY_SIZE
+    t0 = time.perf_counter()
+    z = torch.randn(2, size, size, size, 1,
+                    generator=torch.Generator().manual_seed(3)).cuda()
+    s, v = conditioning(torch, size, 2, "cuda", 2)
+    t = torch.tensor([0.3, 0.8], device="cuda")
+    ref_m = build_vdm(vt, size, "float32", "cuda", 1)
+    sh_m = build_vdm(vt, size, "float32", "cuda", 1, ctx)
+    with torch.inference_mode():
+        want = local_slab(ref_m.eps_hat(z, t, s, [v]), ctx)
+        got = sh_m.eps_hat(local_slab(z, ctx), t, local_slab(s, ctx), [v])
+        torch.cuda.synchronize()
+    abs_err, err = rel_err(got, want)
+    line = {"phase": "sharded", "what": "eps_hat", "model": VDM_PRESET,
+            "size": size, "dtype": "float32", "slab": list(got.shape),
+            "max_abs_ref": want.abs().max().item(), "max_abs_err": abs_err,
+            "rel_err": err, "tol": SHARDED_TOL,
+            "seconds": time.perf_counter() - t0}
+    fail_unless(bool(torch.isfinite(got).all()) and err <= SHARDED_TOL
+                and line["max_abs_ref"] > 0.1, "sharded eps_hat", line)
+    emit(line)
+
+    # the loss and every gradient of one step, averaged over the mesh
+    t0 = time.perf_counter()
+    over = {"model.dropout_prob": 0.0}
+    ref_m = build_vdm(vt, size, "float32", "cuda", 1, **over)
+    sh_m = build_vdm(vt, size, "float32", "cuda", 1, ctx, **over)
+    batch = loss_batch(torch, size, 2, "cuda", 8)
+    eps = torch.randn(2, size, size, size, 1,
+                      generator=torch.Generator().manual_seed(7)).cuda()
+    tt = torch.tensor([0.35, 0.85], device="cuda")
+    ref_l = ref_m.loss(batch, train=True, t=tt, eps=eps)
+    ref_l.loss.backward()
+    local = {"x": local_slab(batch["x"], ctx),
+             "conditioning": local_slab(batch["conditioning"], ctx),
+             "conditioning_values": batch["conditioning_values"]}
+    sh_l = sh_m.loss(local, train=True, t=tt, eps=local_slab(eps, ctx))
+    sh_l.loss.backward()
+    names = [k for k, _ in sh_m.named_parameters()]
+    flat = torch.cat([p.grad.reshape(-1) for _, p in
+                      sh_m.named_parameters()]
+                     + [torch.stack([x.detach() for x in sh_l])])
+    mean_over_mesh_(flat, ctx)
+    got_g, i = {}, 0
+    for k, p in sh_m.named_parameters():
+        got_g[k] = flat[i:i + p.numel()].reshape(p.shape).cpu()
+        i += p.numel()
+    got_loss = flat[i:].cpu()
+    ref_g = {k: p.grad.cpu() for k, p in ref_m.named_parameters()}
+    errs, top = grad_errors(got_g, ref_g)
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(got_loss[j].item() - x.item()) / max(1.0, abs(x.item()))
+                   for j, x in enumerate(ref_l))
+    line = {"phase": "sharded", "what": "loss and gradients of one step",
+            "model": VDM_PRESET, "size": size, "batch": 2,
+            "dtype": "float32", "dropout": 0.0, "n_params": len(names),
+            "loss": ref_l.loss.item(), "loss_rel_err": loss_err,
+            "rel_err": errs[worst], "worst_param": worst,
+            "max_abs_grad": top, "tol": GRADS_TOL,
+            "seconds": time.perf_counter() - t0}
+    fail_unless(errs[worst] <= GRADS_TOL and loss_err <= 1e-4 and top > 1e-3,
+                "sharded gradients", line)
+    emit(line)
+
+    # two real sharded steps (dropout 0.1): the digest goes to the parent
+    t0 = time.perf_counter()
+    sh_m = build_vdm(vt, size, "float32", "cuda", 1, ctx)
+    opt = vt.make_optimizer(learning_rate=3e-4, grad_clip=0.5)
+    state = vt.TrainState(0, sh_m, opt.init(sh_m), vt.init_ema(sh_m))
+    step = vt.make_train_step(sh_m, opt, ema_decay=EMA_DECAY)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for _ in range(2):
+        state, metrics = step(state, local, gen)
+    digest = params_digest(sh_m, state)
+    emit({"phase": "sharded", "what": "two train steps", "size": size,
+          "dropout": DROPOUT_P, "loss": metrics["loss"].item(),
+          "grad_norm": metrics["grad_norm"].item(), "params_sha256": digest,
+          "seconds": time.perf_counter() - t0})
+
+    # the SFM's deterministic Heun sampler: the end-to-end halo test
+    t0 = time.perf_counter()
+    ref_s = build_sfm(vt, size, "float32", "cuda", 12)
+    sh_s = build_sfm(vt, size, "float32", "cuda", 12, ctx)
+    sb = sfm_batch(torch, size, 1, "cuda", 13)
+    x0, vs = sb["x0"], sb["conditioning_values"]
+    want = ref_s.draw_samples(x0, SFM_SHARDED_STEPS, vs, method="heun")
+    got = make_sharded_sfm_sampler(sh_s, SFM_SHARDED_STEPS)(x0, vs)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, want)
+    line = {"phase": "sharded", "what": "sfm heun sampler",
+            "model": SFM_PRESET, "size": size, "dtype": "float32",
+            "steps": SFM_SHARDED_STEPS, "padding": sh_s.unet.conv_padding_mode,
+            "max_abs_err": abs_err, "rel_err": err, "tol": SHARDED_TOL,
+            "moved": (want - x0).abs().max().item(),
+            "seconds": time.perf_counter() - t0}
+    fail_unless(err <= SHARDED_TOL and line["moved"] > 1e-2
+                and tuple(got.shape) == tuple(x0.shape), "sharded sampler",
+                line)
+    emit(line)
+    return digest
+
+
+def sharded_timing(torch, vt, K, ctx):
+    """The flagship's sharded train steps and sampler steps at 128^3 on this
+    rank (both ranks run them together on the card)."""
+    from vdm4cdm_torch.parallel import local_slab, make_sharded_vdm_sampler
+
+    size = MAIN_SIZE
+    torch.cuda.empty_cache()
+    held = resident_gib(torch)
+    vdm = build_vdm(vt, size, "bfloat16", "cuda", 9, ctx)
+    g = loss_batch(torch, size, TRAIN_BATCH, "cuda", 10)
+    batch = {"x": local_slab(g["x"], ctx),
+             "conditioning": local_slab(g["conditioning"], ctx),
+             "conditioning_values": g["conditioning_values"]}
+    facts, (state, step, _, gen) = timed_train_steps(
+        torch, vt, K, vdm, batch, TRAIN_STEPS, 11, SHARDED_KERNELS, ctx)
+    # one more step with a device synchronize around every collective, so
+    # that their wall time is their own and not the queued kernels'
+    ctx.stats.reset()
+    ctx.stats.sync = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    synced = {"s_per_step": time.perf_counter() - t0, **ctx.stats.as_dict()}
+    ctx.stats.sync = False
+    emit({"phase": "sharded", "what": "train", "preset": VDM_PRESET,
+          "size": size, "global_batch": TRAIN_BATCH,
+          "slab": list(batch["x"].shape), "n_sp": ctx.size,
+          "padding": vdm.score_model.conv_padding_mode,
+          "held_before_gib": held, **facts, "synced_step": synced,
+          "note": "two ranks share one card over gloo; halo planes go "
+                  "through pinned host memory: no multi-card figure"})
+
+    sampler = vdm.eval()
+    s, v = conditioning(torch, size, 1, "cuda", 5)
+    warm = make_sharded_vdm_sampler(sampler, 1, 1)
+    warm(torch.Generator(device="cuda").manual_seed(0), s, [v])
+    run = make_sharded_vdm_sampler(sampler, 1, MAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ctx.stats.reset()
+    t0 = time.perf_counter()
+    out = run(torch.Generator(device="cuda").manual_seed(6), s, [v])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    line = {"phase": "sharded", "what": "draw_samples", "preset": VDM_PRESET,
+            "size": size, "batch": 1, "dtype": "bfloat16",
+            "steps": MAIN_STEPS, "seconds": dt, "s_per_step": dt / MAIN_STEPS,
+            "s_per_field_250": dt / MAIN_STEPS * FIELD_STEPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches_per_forward": {k: c / MAIN_STEPS
+                                     for k, c in counts.items()},
+            "comm": ctx.stats.as_dict(), "out_shape": list(out.shape),
+            "finite": bool(torch.isfinite(out).all()),
+            "out_std": out.float().std().item()}
+    fail_unless(line["finite"] and tuple(out.shape) == (1, size, size, size, 1)
+                and min(counts[k] for k in SHARDED_FORWARD_KERNELS) > 0,
+                "sharded sampler output is not a finite field through the "
+                "kernels", line)
+    emit(line)
+    return facts["launches"]
+
+
+def sharded_rank(rank, world):
+    """One rank of the sharded phase (a process of its own on cuda:0): its
+    lines, the parameters' digest and the launches of its timed steps."""
+    global _SINK
+    _SINK = []
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import vdm4cdm_torch as vt
+    from vdm4cdm_torch.ops import kernels as K
+    from vdm4cdm_torch.parallel import make_mesh, make_shard_ctx
+
+    ctx = make_shard_ctx(make_mesh(1, world))
+    t0 = time.perf_counter()
+    heads = {}
+    for local, size, cin, cout, combos in zhalo_cases():
+        for mode, dtype_name in combos:
+            check_zhalo(torch, K, local, size, cin, cout, mode, dtype_name,
+                        TRAIN_BATCH, False)
+    emit({"phase": "sharded", "what": "z-halo kernel checks",
+          "seconds": time.perf_counter() - t0})
+    # rank 0 times the kernels at its slab shapes while the others wait
+    dist.barrier()
+    if rank == 0:
+        local, size = MAIN_SIZE // world, MAIN_SIZE
+        heads.update(check_zhalo(torch, K, local, size, 32, 32, "circular",
+                                 "bfloat16", TRAIN_BATCH, True))
+        S = local * size * size
+        fwd = check_norm(torch, K, size, 32, "bfloat16", TRAIN_BATCH, True,
+                         S=S)
+        bwd = check_norm_bwd(torch, K, size, 32, "bfloat16", TRAIN_BATCH,
+                             "silu", DROPOUT_P, True, S=S)
+        for name, line in zip(("gn_sums", "gn_apply", "gn_bwd_sums",
+                               "gn_bwd_apply"), fwd + bwd):
+            heads[name + "_cp"] = line
+    dist.barrier()
+    digest = sharded_checks(torch, vt, K, ctx)
+    launches = sharded_timing(torch, vt, K, ctx)
+    return {"lines": _SINK, "digest": digest, "heads": heads,
+            "launches": launches}
+
+
+def phase_sharded(torch, kernels):
+    """Spawn the sharded phase's ranks on cuda:0, print their lines, check
+    the parameters' digests across ranks, and add the z-halo and CP rows to
+    the ``kernels`` line."""
+    from vdm4cdm_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    store = OUT_DIR / "sharded_store"
+    store.mkdir(exist_ok=True)
+    ranks = spawn_ranks(sharded_rank, SHARDED_RANKS, store_dir=str(store),
+                        timeout=SHARDED_TIMEOUT)
+    for r, out in enumerate(ranks):
+        for line in out["lines"]:
+            emit({**line, "rank": r})
+    digests = [out["digest"] for out in ranks]
+    line = {"phase": "sharded", "what": "parameters equal across ranks",
+            "params_sha256": digests, "equal": len(set(digests)) == 1,
+            "seconds": time.perf_counter() - t0}
+    fail_unless(line["equal"], "ranks' parameters differ", line)
+    emit(line)
+    for name, row in ranks[0]["heads"].items():
+        kernels[name] = row
+    for name in kernels:
+        base = name[:-3] if name.endswith("_cp") else name
+        kernels[name]["launches_sharded"] = ranks[0]["launches"].get(base)
+    for name in ZHALO_KERNELS + CP_ROWS:
+        kernels[name]["launches"] = kernels[name]["launches_sharded"]
+
+
+UNSHARDED_KERNELS = ("conv3d_k3s1_fwd", "conv3d_k3s1_dw", "gn_sums",
+                     "gn_apply", "gn_bwd_sums", "gn_bwd_apply", "mm1x1_fwd",
+                     "mm1x1_dw")
+ZHALO_KERNELS = ("conv3d_k3s1_zhalo_fwd", "conv3d_k3s1_zhalo_dx",
+                 "conv3d_k3s1_zhalo_dw")
+CP_ROWS = ("gn_sums_cp", "gn_apply_cp", "gn_bwd_sums_cp", "gn_bwd_apply_cp")
+SHARDED_KERNELS = ZHALO_KERNELS + UNSHARDED_KERNELS[2:]
+SHARDED_FORWARD_KERNELS = ("conv3d_k3s1_zhalo_fwd", "gn_sums", "gn_apply",
+                           "mm1x1_fwd")
 
 
 FORWARD_KERNELS = ("conv3d_k3s1_fwd", "gn_sums", "gn_apply", "mm1x1_fwd")
@@ -1410,6 +1872,21 @@ META = {
                   "vdm4cdm_tpu/ops/pallas/lanemm.py:56"),
     "mm1x1_dw": ("cuda", "vdm4cdm_torch/csrc/lanemm.cu",
                  "vdm4cdm_tpu/ops/pallas/lanemm.py:64"),
+    # the sharded path's entries: the z-halo conv and the CP GroupNorm
+    "conv3d_k3s1_zhalo_fwd": ("cuda", "vdm4cdm_torch/csrc/conv3d_fwd.cu",
+                              "vdm4cdm_tpu/ops/pallas/conv3d.py:995"),
+    "conv3d_k3s1_zhalo_dx": ("cuda", "vdm4cdm_torch/csrc/conv3d_fwd.cu",
+                             "vdm4cdm_tpu/ops/pallas/conv3d.py:1011"),
+    "conv3d_k3s1_zhalo_dw": ("cuda", "vdm4cdm_torch/csrc/conv3d_dw.cu",
+                             "vdm4cdm_tpu/ops/pallas/conv3d.py:1025"),
+    "gn_sums_cp": ("triton", "vdm4cdm_torch/ops/kernels/fused_norm.py",
+                   "vdm4cdm_tpu/ops/pallas/fused_norm.py:620"),
+    "gn_apply_cp": ("triton", "vdm4cdm_torch/ops/kernels/fused_norm.py",
+                    "vdm4cdm_tpu/ops/pallas/fused_norm.py:620"),
+    "gn_bwd_sums_cp": ("triton", "vdm4cdm_torch/ops/kernels/fused_norm.py",
+                       "vdm4cdm_tpu/ops/pallas/fused_norm.py:639"),
+    "gn_bwd_apply_cp": ("triton", "vdm4cdm_torch/ops/kernels/fused_norm.py",
+                        "vdm4cdm_tpu/ops/pallas/fused_norm.py:639"),
 }
 SOURCES = ("conv3d_fwd.cu", "conv3d_dw.cu", "lanemm.cu")
 
@@ -1475,7 +1952,7 @@ def main() -> int:
         phase_parity(torch, vt)
     if "grads" in phases:
         phase_grads(torch, vt, K)
-    heads = heads or {k: {} for k in META}
+    heads = heads or {k: {} for k in UNSHARDED_KERNELS}
     sampler = trainer = sfm_trainer = None
     if "main" in phases:
         sampler = phase_main(torch, vt, K, heads)
@@ -1485,6 +1962,8 @@ def main() -> int:
         sfm_trainer = phase_sfm(torch, vt, K, heads)
     if "ddnm" in phases:
         phase_ddnm(torch, vt, K)
+    if "sharded" in phases:
+        phase_sharded(torch, heads)
     # the profiler runs last, so that tracing cannot touch a timed phase
     if "profile" in phases:
         if sampler is not None:
@@ -1510,9 +1989,10 @@ def main() -> int:
          "replaces": META[name][2], "shape": h["shape"],
          "dtype": h["dtype"], "padding": h.get("mode"),
          "launches": h["launches"],
-         "launches_vdm_train": h["launches_vdm_train"],
+         "launches_vdm_train": h.get("launches_vdm_train"),
          "launches_sampler": h.get("launches_sampler"),
          "launches_sfm_sampler": h.get("launches_sfm_sampler"),
+         "launches_sharded": h["launches_sharded"],
          "max_abs_err": h["max_abs_err"], "ms": h["ms"],
          "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
          "bound_by": h["bound_by"], "library_ms": h["library_ms"]}

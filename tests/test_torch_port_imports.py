@@ -46,3 +46,13 @@ def test_scan_catches_a_jax_import(tmp_path):
                  "import importlib\nimportlib.import_module('jax.numpy')\n")
     assert {m.split(".")[0] for m in _imports(p)} == {
         "vdm4cdm_tpu", "importlib", "jax"}
+
+
+def test_the_parallel_modules_are_scanned():
+    """The sharded path (``vdm4cdm_torch/parallel/``) is held to the same
+    rule, and so is the rank-function module its CPU tests spawn."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for name in ("__init__", "halo", "shard", "sampling", "launch"):
+        assert f"vdm4cdm_torch/parallel/{name}.py" in scanned
+    worker = ROOT / "tests" / "_torch_dist_worker.py"
+    assert not [m for m in _imports(worker) if m.split(".")[0] in FORBIDDEN]

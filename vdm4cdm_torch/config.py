@@ -142,15 +142,24 @@ class ExperimentConfig:
             return cls.from_dict(yaml.safe_load(f))
 
 
-def build_model(cfg: ExperimentConfig, device=None):
+def build_model(cfg: ExperimentConfig, device=None, ctx=None):
     """ExperimentConfig -> VDM or SFM with freshly initialized parameters on
-    ``device`` (None = the CUDA card)."""
+    ``device`` (None = the CUDA card). ``ctx`` (a
+    :class:`~vdm4cdm_torch.parallel.halo.ShardCtx` of this rank, None =
+    unsharded) splits the UNet over ``cfg.parallel``'s mesh, whose sizes it
+    must match; the model then works on this rank's slab."""
     import torch
 
     from .diffusion import VDM, make_schedule
     from .flows import SFM
     from .models import CUNet
+    from .parallel.halo import NO_SHARD
 
+    ctx = NO_SHARD if ctx is None else ctx
+    par = cfg.parallel
+    if (ctx.data_size, ctx.size) != (par.n_data, par.n_sp):
+        raise ValueError(f"ctx mesh {ctx.data_size} x {ctx.size} is not "
+                         f"cfg.parallel's {par.n_data} x {par.n_sp}")
     m, d = cfg.model, cfg.data
     if m.family not in ("vdm", "sfm"):
         raise ValueError(f"unknown model family {m.family!r}")
@@ -176,6 +185,7 @@ def build_model(cfg: ExperimentConfig, device=None):
                            else "zeros"),
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         device=device,
+        ctx=ctx,
     )
     if m.family == "vdm":
         return VDM(net, make_schedule(m.noise_schedule, m.gamma_min,

@@ -18,6 +18,14 @@
 // additions changes from run to run, so two runs agree to f32 rounding of a
 // sum over K terms, not bitwise.
 //
+// zmode 1 (halo) is the weight gradient of the sharded path's valid-in-z conv
+// (replaces _dw_kernel under zmode="halo", reached through
+// _conv_pallas_dw(..., zmode="halo") from conv3d_pallas_zhalo's backward): x
+// has D + 2 planes, the slab and its two exchanged halo planes, ct has D, and
+// tap kz of output plane d reads x plane d + kz, never wrapped or
+// zero-filled. H and W are gathered as in zmode 0. The sums are the slab's
+// own; the train step averages every gradient over the ranks.
+//
 // Both operands lie voxel-major with channels contiguous, so K is the outer
 // dimension of both shared-memory tiles. bf16 runs on the tensor cores
 // through mma.sync m16n8k16 with f32 accumulators; its fragments want pairs
@@ -80,7 +88,7 @@ template <typename T, int BM, int BN>
 __global__ void __launch_bounds__((BM / 16) * (BN / 32) * 32)
 conv3d_dw_kernel(const T* __restrict__ x, const T* __restrict__ ct, float* __restrict__ dw,
                  float* __restrict__ db, int B, int D, int H, int W, int Cin, int Cout,
-                 int circular, long long run) {
+                 int circular, int zmode, long long run) {
   constexpr int THREADS = (BM / 16) * (BN / 32) * 32;
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int SEGX = BM / VEC, SEGC = BN / VEC;
@@ -105,6 +113,9 @@ conv3d_dw_kernel(const T* __restrict__ x, const T* __restrict__ ct, float* __res
   if (v0 >= v1) return;
   const int n_chunks = (int)((v1 - v0 + BK - 1) / BK);
   const bool do_db = db != nullptr && tap == 0 && ci0 == 0;
+  // x's planes: D, or D + 2 with the halo planes in zmode 1 (see the top)
+  const int zoff = zmode == 1 ? 1 : 0;
+  const int Dx = D + 2 * zoff;
 
   // Each thread gathers the same NX rows of every x tile; it keeps those
   // voxels' (b, d, h, w) and steps them by BK from chunk to chunk.
@@ -128,17 +139,18 @@ conv3d_dw_kernel(const T* __restrict__ x, const T* __restrict__ ct, float* __res
       const int v = tid + i * THREADS;
       const int row = v / SEGX, seg = v % SEGX;
       const int c = ci0 + seg * VEC;
-      int sd = xd[i] + kz - 1, sh = xh[i] + ky - 1, sw = xw[i] + kx - 1;
+      int sd = xd[i] + kz - 1 + zoff, sh = xh[i] + ky - 1, sw = xw[i] + kx - 1;
       bool ok = xv[i] < v1 && c < Cin;
       if (circular) {
-        sd = wrap(sd, D);
+        if (zmode == 0) sd = wrap(sd, D);
         sh = wrap(sh, H);
         sw = wrap(sw, W);
       } else {
-        ok = ok && sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W;
+        ok = ok && sh >= 0 && sh < H && sw >= 0 && sw < W;
       }
+      ok = ok && sd >= 0 && sd < Dx;
       const T* src =
-          ok ? x + ((((long long)xb[i] * D + sd) * H + sh) * W + sw) * Cin + c : x;
+          ok ? x + ((((long long)xb[i] * Dx + sd) * H + sh) * W + sw) * Cin + c : x;
       cp_async16(&Xs[stage][row][seg * VEC], src, ok);
       xv[i] += BK;
       xw[i] += BK;
@@ -275,7 +287,7 @@ constexpr int MIN_CHUNKS_PER_RUN = 8;
 
 template <typename T, int BM, int BN>
 void launch(const void* x, const void* ct, float* dw, float* db, int B, int D, int H, int W,
-            int Cin, int Cout, int circular, cudaStream_t stream) {
+            int Cin, int Cout, int circular, int zmode, cudaStream_t stream) {
   const long long total = (long long)B * D * H * W;
   const long long chunks = (total + BK - 1) / BK;
   const int tiles = 27 * ((Cin + BM - 1) / BM) * ((Cout + BN - 1) / BN);
@@ -288,37 +300,39 @@ void launch(const void* x, const void* ct, float* dw, float* db, int B, int D, i
   dim3 grid((unsigned)splits, (unsigned)tiles, 1);
   conv3d_dw_kernel<T, BM, BN><<<grid, (BM / 16) * (BN / 32) * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ct), dw, db, B, D, H, W, Cin, Cout,
-      circular, run);
+      circular, zmode, run);
 }
 
 template <typename T>
 void dispatch(const void* x, const void* ct, float* dw, float* db, int B, int D, int H, int W,
-              int Cin, int Cout, int circular, cudaStream_t st) {
+              int Cin, int Cout, int circular, int zmode, cudaStream_t st) {
   const bool wide_m = Cin >= 64, wide_n = Cout >= 64;
   if (wide_m && wide_n)
-    launch<T, 64, 64>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, st);
+    launch<T, 64, 64>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
   else if (wide_m)
-    launch<T, 64, 32>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, st);
+    launch<T, 64, 32>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
   else if (wide_n)
-    launch<T, 32, 64>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, st);
+    launch<T, 32, 64>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
   else
-    launch<T, 32, 32>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, st);
+    launch<T, 32, 32>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
 }
 
 }  // namespace
 
-// x (B, D, H, W, Cin) and ct (B, D, H, W, Cout) in the same dtype (0 = f32,
-// 1 = bf16); dw (27, Cin, Cout) f32 and db (Cout) f32 (or null), both
-// zero-filled by the caller. Cin and Cout are multiples of 8; every pointer
-// is 16-byte aligned. Returns cudaGetLastError() after the launch.
+// x (B, Dx, H, W, Cin) with Dx = D (zmode 0) or D + 2 (zmode 1) and ct
+// (B, D, H, W, Cout) in the same dtype (0 = f32, 1 = bf16); dw (27, Cin,
+// Cout) f32 and db (Cout) f32 (or null), both zero-filled by the caller. Cin
+// and Cout are multiples of 8; every pointer is 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int conv3d_k3s1_dw(int dtype, const void* x, const void* ct, float* dw, float* db,
                               int B, int D, int H, int W, int Cin, int Cout, int circular,
-                              void* stream) {
+                              int zmode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (zmode < 0 || zmode > 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    dispatch<__nv_bfloat16>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, st);
+    dispatch<__nv_bfloat16>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
   else if (dtype == 0)
-    dispatch<float>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, st);
+    dispatch<float>(x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

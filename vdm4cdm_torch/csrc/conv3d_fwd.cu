@@ -31,6 +31,26 @@
 // The sums are reduced per block in shared memory and then added to the
 // (B, 2, Cout) f32 output with atomicAdd: their order changes from run to run,
 // so two runs agree to f32 rounding of a sum over D*H*W terms, not bitwise.
+//
+// z modes. zmode 0 is the SAME conv above (the input has the output's D
+// planes, z wraps or zero-fills like H and W). The spatially sharded path
+// (vdm4cdm_torch/parallel) splits D over ranks and exchanges one halo plane
+// on each side before the conv, so it needs two more entries, both with H and
+// W gathered exactly as in zmode 0:
+//   zmode 1 (halo): the input has D + 2 planes, the first and last being the
+//     neighbours' halo planes, and the output has D: output plane d reads
+//     input planes d .. d + 2, valid in z, never wrapped or zero-filled
+//     (replaces _fwd_kernel under zmode="halo", conv3d.py:339, reached through
+//     conv3d_pallas_zhalo and its packed entries). The sums are the slab's
+//     own; the GroupNorm that takes them all-reduces them over the ranks.
+//   zmode 2 (full): the input has D - 2 planes and the output D: output plane
+//     p reads input planes p - 2 .. p, zero outside. With flipped, transposed
+//     weights this is the input gradient of zmode 1 (the transpose of valid
+//     in z is full in z), computed without writing a zero-padded copy of the
+//     output gradient as the TPU package's _bwd_zh does.
+// Only the row gather changes: Din = D + 2 (zmode 1) or D - 2 (zmode 2) is the
+// input's plane count, the tap's input plane is d + kz - 1 + zoff with zoff =
+// 1 or -1, and a plane outside [0, Din) is zero-filled by the copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,7 +116,7 @@ __global__ void __launch_bounds__(THREADS)
 conv3d_k3s1_kernel(const T* __restrict__ x, const T* __restrict__ wt,
                    const float* __restrict__ bias, const T* __restrict__ res,
                    T* __restrict__ out, float* __restrict__ sums, int D, int H, int W,
-                   int Cin, int Cout, int circular) {
+                   int Cin, int Cout, int circular, int zmode) {
   constexpr int VEC = Tile<T>::VEC, BK = Tile<T>::BK, LD = BK + VEC;
   static_assert(BK / VEC == 4, "four 16-byte vectors per tile row");
   __shared__ __align__(16) T As[2][BM][LD];
@@ -108,7 +128,10 @@ conv3d_k3s1_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   const long long S = (long long)D * H * W;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const T* xb = x + (long long)b * S * Cin;
+  // input planes and the tap's plane offset of this z mode (see the top)
+  const int zoff = zmode == 1 ? 1 : (zmode == 2 ? -1 : 0);
+  const int Din = D + 2 * zoff;
+  const T* xb = x + (long long)b * Din * H * W * Cin;
   const long long obase = (long long)b * S * Cout;
 
   for (int i = tid; i < 2 * BN; i += THREADS) (&s_sum[0][0])[i] = 0.f;
@@ -140,15 +163,16 @@ conv3d_k3s1_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int c = c0 + a_seg[i] * VEC;
-      int sd = a_d[i] + kz - 1, sh = a_h[i] + ky - 1, sw = a_w[i] + kx - 1;
+      int sd = a_d[i] + kz - 1 + zoff, sh = a_h[i] + ky - 1, sw = a_w[i] + kx - 1;
       bool ok = a_ok[i] && c < Cin;
       if (circular) {
-        sd = wrap(sd, D);
+        if (zmode == 0) sd = wrap(sd, D);
         sh = wrap(sh, H);
         sw = wrap(sw, W);
       } else {
-        ok = ok && sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W;
+        ok = ok && sh >= 0 && sh < H && sw >= 0 && sw < W;
       }
+      ok = ok && sd >= 0 && sd < Din;
       const T* src = ok ? xb + (((long long)sd * H + sh) * W + sw) * Cin + c : x;
       cp_async16(&As[stage][a_row[i]][a_seg[i] * VEC], src, ok);
     }
@@ -310,36 +334,43 @@ conv3d_k3s1_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 template <typename T, int BN>
 void launch(const void* x, const void* wt, const float* bias, const void* res, void* out,
             float* sums, int B, int D, int H, int W, int Cin, int Cout, int circular,
-            cudaStream_t stream) {
+            int zmode, cudaStream_t stream) {
   const long long S = (long long)D * H * W;
   dim3 grid((unsigned)((S + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN), (unsigned)B);
   conv3d_k3s1_kernel<T, BN><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wt), bias, static_cast<const T*>(res),
-      static_cast<T*>(out), sums, D, H, W, Cin, Cout, circular);
+      static_cast<T*>(out), sums, D, H, W, Cin, Cout, circular, zmode);
 }
 
 }  // namespace
 
-// x (B, D, H, W, Cin), wt (27, Cout, Cin) in the same dtype (0 = f32,
-// 1 = bf16), bias (Cout) f32 or null, res (B, D, H, W, Cout) or null,
-// out (B, D, H, W, Cout), sums (B, 2, Cout) f32 zero-filled or null.
-// Cin and Cout are multiples of 8; every pointer is 16-byte aligned.
-// Returns cudaGetLastError() after the launch.
+// x (B, Din, H, W, Cin) with Din = D, D + 2 or D - 2 for zmode 0, 1 or 2,
+// wt (27, Cout, Cin) in the same dtype (0 = f32, 1 = bf16), bias (Cout) f32
+// or null, res (B, D, H, W, Cout) or null, out (B, D, H, W, Cout), sums
+// (B, 2, Cout) f32 zero-filled or null. Cin and Cout are multiples of 8;
+// every pointer is 16-byte aligned. Returns cudaGetLastError() after the
+// launch.
 extern "C" int conv3d_k3s1_fwd(int dtype, const void* x, const void* wt, const float* bias,
                                const void* res, void* out, float* sums, int B, int D, int H,
-                               int W, int Cin, int Cout, int circular, void* stream) {
+                               int W, int Cin, int Cout, int circular, int zmode,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = Cout <= 32;
+  if (zmode < 0 || zmode > 2 || (zmode == 2 && D < 3)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (narrow)
-      launch<__nv_bfloat16, 32>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular, st);
+      launch<__nv_bfloat16, 32>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular,
+                                zmode, st);
     else
-      launch<__nv_bfloat16, 64>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular, st);
+      launch<__nv_bfloat16, 64>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular,
+                                zmode, st);
   } else if (dtype == 0) {
     if (narrow)
-      launch<float, 32>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular, st);
+      launch<float, 32>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular, zmode,
+                        st);
     else
-      launch<float, 64>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular, st);
+      launch<float, 64>(x, wt, bias, res, out, sums, B, D, H, W, Cin, Cout, circular, zmode,
+                        st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,6 +12,16 @@ threefry streams cannot be reproduced in torch, so every entry also takes its
 randomness injected (``eps=`` for one step, ``noise=(z_init, eps_steps)`` for
 ``draw_samples``, ``t=``, ``eps=`` and ``dropout_seed=`` for ``loss``), which
 is how the tests hold it against the JAX package.
+
+Under spatial sharding (the score model's ``ctx`` is sharded) every entry
+runs on this rank's slab, as the JAX functions do inside ``shard_map``:
+``loss`` draws t from ``generator`` (held in the same state on the ranks of
+one ``sp`` group, so the slab's voxels share their sample's t) and its eps
+from :func:`~vdm4cdm_torch.parallel.shard.eps_generator` with the ``sp``
+index folded in (seeded on the host from a given ``dropout_seed``), and
+folds that index into the dropout seed
+(``vdm4cdm_tpu/diffusion/vdm.py:142-146``); ``draw_samples`` folds it into
+its whole noise stream (:254-256). Injected noise is this rank's slice.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ import torch
 from torch import nn
 
 from ..models.cunet import CUNet
+from ..ops.kernels.philox import mix_seed
+from ..parallel.shard import eps_generator, rank_generator
 from .schedule import NoiseSchedule, alpha_sigma
 
 
@@ -58,6 +70,14 @@ class VDM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.score_model.conv_in.kernel.device
+
+    @property
+    def local_sample_shape_nlast(self) -> Tuple[int, ...]:
+        """This rank's slab of ``sample_shape_nlast``."""
+        shape = list(self.sample_shape_nlast)
+        ctx = self.score_model.ctx
+        shape[ctx.spatial_dim] //= ctx.size
+        return tuple(shape)
 
     def gamma(self, t) -> torch.Tensor:
         return self.schedule.gamma(t).to(self.device)
@@ -97,7 +117,10 @@ class VDM(nn.Module):
         is drawn. ``t`` (B,), ``eps`` (x's shape) and ``dropout_seed`` (a host
         integer) can be injected; otherwise they come from ``generator``.
         Drawing the dropout seed reads one integer back from the generator's
-        device; a caller that counts its steps passes the seed instead."""
+        device; a caller that counts its steps passes the seed instead, and
+        sharded that seed also seeds this rank's eps on the host.
+        Sharded, ``batch`` and ``eps`` are this rank's slabs (see the module
+        docstring)."""
         dev = self.device
         x = batch["x"].to(dev, torch.float32)
         s_cond = batch.get("conditioning")
@@ -114,7 +137,13 @@ class VDM(nn.Module):
             t = torch.remainder(u0 + ladder, 1.0)
         else:
             t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-        eps = self._normal(x.shape, generator, eps)
+        shard = self.score_model.ctx
+        if eps is None and shard.sharded:
+            generator_eps = eps_generator(generator, dropout_seed,
+                                          shard.index)
+        else:
+            generator_eps = generator
+        eps = self._normal(x.shape, generator_eps, eps)
         drops = train and self.score_model.dropout_prob > 0.0
         if drops and dropout_seed is None:
             if generator is None:
@@ -123,6 +152,8 @@ class VDM(nn.Module):
             dropout_seed = int(torch.randint(
                 0, 2 ** 62, (1,), generator=generator,
                 device=generator.device).item())
+        if drops and shard.sharded:
+            dropout_seed = mix_seed(int(dropout_seed), shard.index)
 
         g_t = self.gamma(t)
         alpha_t, sigma_t = alpha_sigma(g_t)
@@ -197,8 +228,17 @@ class VDM(nn.Module):
         """Ancestral sampling from the prior: normalized samples, channels-
         last (B, *spatial, C), f32. ``generator`` draws the initial z and
         each step's eps on the model's device; ``noise=(z_init, eps_steps)``
-        injects them instead (eps_steps[i] is step i's eps)."""
-        shape = (batch_size,) + tuple(sample_shape or self.sample_shape_nlast)
+        injects them instead (eps_steps[i] is step i's eps). Sharded, the
+        samples, the conditioning and the injected noise are this rank's
+        slabs (``sample_shape`` defaults to the local one) and the noise
+        stream folds in the ``sp`` index."""
+        shape = (batch_size,) + tuple(sample_shape
+                                      or self.local_sample_shape_nlast)
+        if noise is None and self.score_model.ctx.sharded:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or the noise itself")
+            generator = rank_generator(generator,
+                                       self.score_model.ctx.index)
         if noise is not None:
             z_init, eps_steps = noise
             if len(eps_steps) != n_sampling_steps:

@@ -16,8 +16,16 @@ Noise comes from an explicit ``torch.Generator`` on the model's device. JAX's
 threefry streams cannot be reproduced in torch, so every entry also takes its
 randomness injected (``t=``, ``eps=`` and ``dropout_seed=`` for ``loss``,
 ``noise=(eps_start, eps_steps)`` for ``draw_samples``), which is how the tests
-hold it against the JAX package. The per-shard ``fold_in`` of the JAX loss
-belongs to the sharded path and is not here.
+hold it against the JAX package.
+
+Under spatial sharding (the velocity model's ``ctx`` is sharded) ``loss``
+runs on this rank's slab: t comes from ``generator`` (held in the same state
+on the ranks of one ``sp`` group), eps from
+:func:`~vdm4cdm_torch.parallel.shard.eps_generator` with the ``sp`` index
+folded in (seeded on the host from the dropout seed where there is one), and
+the dropout seed folds that index in too
+(``vdm4cdm_tpu/flows/sfm.py:94-98``). ``draw_samples`` folds nothing: the
+sharded sampler (``parallel/sampling.py``) hands it a rank's generator.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import torch
 from torch import nn
 
 from ..models.cunet import CUNet
+from ..ops.kernels.philox import mix_seed
+from ..parallel.shard import eps_generator
 
 METHODS = ("euler", "heun", "sde")
 
@@ -108,7 +118,8 @@ class SFM(nn.Module):
         ``dropout_seed`` (a host integer) can be injected; otherwise they
         come from ``generator``. Drawing the dropout seed reads one integer
         back from the generator's device; a caller that counts its steps
-        passes the seed instead."""
+        passes the seed instead. Sharded, ``batch`` and ``eps`` are this
+        rank's slabs (see the module docstring)."""
         dev = self.device
         x0 = batch["x0"].to(dev, torch.float32)
         x1 = batch["x1"].to(dev, torch.float32)
@@ -133,11 +144,19 @@ class SFM(nn.Module):
             dropout_seed = int(torch.randint(
                 0, 2 ** 62, (1,), generator=generator,
                 device=generator.device).item())
+        shard = self.unet.ctx
+        step_seed = dropout_seed
+        if drops and shard.sharded:
+            dropout_seed = mix_seed(int(dropout_seed), shard.index)
 
         xt = (1.0 - tb) * x0 + tb * x1
         target = x1 - x0
         if noisy:
-            eps = self._normal(x0.shape, generator, eps)
+            generator_eps = generator
+            if eps is None and shard.sharded:
+                generator_eps = eps_generator(generator, step_seed,
+                                              shard.index)
+            eps = self._normal(x0.shape, generator_eps, eps)
             g = torch.sqrt(tb * (1.0 - tb))
             gdot = (1.0 - 2.0 * tb) / (2.0 * g)
             xt = xt + self.sigma * g * eps

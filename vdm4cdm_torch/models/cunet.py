@@ -1,8 +1,8 @@
 """CUNet: the conditional 3D UNet behind the VDM, counterpart of
 ``vdm4cdm_tpu/models/cunet.py``.
 
-Same constructor fields as the JAX module (without ``ctx``, which comes with
-the sharding slice), same parameter names and layouts, so a JAX params tree maps onto ``state_dict`` by name alone
+Same constructor fields as the JAX module, same parameter names and layouts,
+so a JAX params tree maps onto ``state_dict`` by name alone
 (``interop/from_jax.py``):
 
   * activations are channels-last (B, D, H, W, C) in ``compute_dtype``;
@@ -23,7 +23,14 @@ the sharding slice), same parameter names and layouts, so a JAX params tree maps
     (remat_levels is None or level < remat_levels)`` or its name (``down_{l}_
     {b}``, ``mid_0``, ``mid_1``, ``up_{l}_{b}``; the bottleneck counts as the
     last level) is in ``remat_blocks``. The recomputed forward regenerates
-    the same dropout mask from (seed, index), so no RNG state is kept.
+    the same dropout mask from (seed, index), so no RNG state is kept;
+  * ``ctx`` (a :class:`~vdm4cdm_torch.parallel.halo.ShardCtx`) splits the
+    first spatial dim over the ``sp`` ranks, as the JAX module's ``ctx``
+    does: every conv exchanges halo planes, every GroupNorm all-reduces its
+    sums, the stride-2 downsamples need an even local size (so a rank's
+    share of D must divide by 2^(levels - 1)), and the bottleneck attention
+    gathers the whole field and takes its chunk back. Inputs and outputs
+    are then this rank's slab.
 
 Parameters initialize as the JAX module's do (LeCun-normal kernels, zero
 biases, unit norm scales, zero ``conv_out``, second ResBlock convs and
@@ -46,7 +53,9 @@ from ..ops.conv import conv_nd
 from ..ops.kernels.philox import mix_seed
 from ..ops.norm import group_norm, group_norm_film
 from ..ops.pair import Pair
-from ..ops.resample import upsample_nearest
+from ..ops.resample import downsample_conv, upsample_nearest
+from ..parallel.halo import (NO_SHARD, ShardCtx, all_gather_spatial,
+                             take_local_spatial)
 
 # flax's lecun_normal: a normal truncated at two deviations, rescaled to unit
 # variance (the std of a standard normal truncated to [-2, 2])
@@ -100,7 +109,7 @@ class Conv(nn.Module):
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding_mode: str = "zeros", zero_init: bool = False,
-                 generator=None):
+                 generator=None, ctx: ShardCtx = NO_SHARD):
         super().__init__()
         shape = (k, k, k, cin, cout)
         w = (torch.zeros(shape) if zero_init
@@ -109,28 +118,35 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride = stride
         self.padding_mode = padding_mode
+        self.ctx = ctx
 
     def forward(self, x, emit_stats: bool = False, residual=None):
+        if self.stride == 2:
+            return downsample_conv(x, self.kernel, self.bias,
+                                   padding_mode=self.padding_mode,
+                                   ctx=self.ctx)
         return conv_nd(x, self.kernel, self.bias, stride=self.stride,
                        padding_mode=self.padding_mode, emit_stats=emit_stats,
-                       residual=residual)
+                       residual=residual, ctx=self.ctx)
 
 
 class GroupNorm(nn.Module):
     """GroupNorm with an optional FiLM (scale, shift) and SiLU."""
 
-    def __init__(self, channels: int, groups: int, act: Optional[str] = None):
+    def __init__(self, channels: int, groups: int, act: Optional[str] = None,
+                 ctx: ShardCtx = NO_SHARD):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.groups = groups
         self.act = act
+        self.ctx = ctx
 
     def forward(self, x, film=None, ext_sums=None, dropout_p: float = 0.0,
                 dropout_seed: Optional[int] = None):
         if film is None and dropout_p == 0.0:
             return group_norm(x, self.scale, self.bias, self.groups,
-                              act=self.act, ext_sums=ext_sums)
+                              act=self.act, ext_sums=ext_sums, ctx=self.ctx)
         if film is None:
             bsz = x.a.shape[0] if isinstance(x, Pair) else x.shape[0]
             zero = torch.zeros(bsz, self.scale.shape[0],
@@ -139,7 +155,7 @@ class GroupNorm(nn.Module):
         return group_norm_film(x, self.scale, self.bias, film[0], film[1],
                                self.groups, act=self.act, ext_sums=ext_sums,
                                dropout_p=dropout_p,
-                               dropout_seed=dropout_seed)
+                               dropout_seed=dropout_seed, ctx=self.ctx)
 
 
 class ResBlock(nn.Module):
@@ -148,18 +164,21 @@ class ResBlock(nn.Module):
 
     def __init__(self, cin: int, features: int, norm_groups: int,
                  dropout_prob: float, padding_mode: str,
-                 emb_dim: Optional[int], generator=None):
+                 emb_dim: Optional[int], generator=None,
+                 ctx: ShardCtx = NO_SHARD):
         super().__init__()
         self.dropout_prob = dropout_prob
-        self.GroupNorm_0 = GroupNorm(cin, norm_groups, act="silu")
+        self.GroupNorm_0 = GroupNorm(cin, norm_groups, act="silu", ctx=ctx)
         self.Conv_0 = Conv(cin, features, 3, padding_mode=padding_mode,
-                           generator=generator)
+                           generator=generator, ctx=ctx)
         self.film = (Dense(emb_dim, 2 * features, generator)
                      if emb_dim else None)
-        self.GroupNorm_1 = GroupNorm(features, norm_groups, act="silu")
+        self.GroupNorm_1 = GroupNorm(features, norm_groups, act="silu",
+                                     ctx=ctx)
         self.Conv_1 = Conv(features, features, 3, padding_mode=padding_mode,
-                           zero_init=True)
-        self.skip_proj = (Conv(cin, features, 1, generator=generator)
+                           zero_init=True, ctx=ctx)
+        self.skip_proj = (Conv(cin, features, 1, generator=generator,
+                               ctx=ctx)
                           if cin != features else None)
 
     def forward(self, x, emb, train: bool = False,
@@ -188,14 +207,17 @@ class ResBlock(nn.Module):
 class AttentionBlock(nn.Module):
     """Self-attention over all voxels, used at the bottleneck (``mid_attn``).
     qkv kernel (C, 3, heads, hd), proj kernel (heads, hd, C); the products
-    run in f32 as flax promotes them."""
+    run in f32 as flax promotes them. Under a sharded ``ctx`` every rank
+    gathers the normalized field, attends over all of it and keeps its own
+    chunk of the result (``cunet.py:216-227`` of the JAX package)."""
 
     def __init__(self, channels: int, num_heads: int, norm_groups: int,
-                 generator=None):
+                 generator=None, ctx: ShardCtx = NO_SHARD):
         super().__init__()
         hd = channels // num_heads
         self.num_heads = num_heads
-        self.GroupNorm_0 = GroupNorm(channels, norm_groups)
+        self.ctx = ctx
+        self.GroupNorm_0 = GroupNorm(channels, norm_groups, ctx=ctx)
         self.qkv = nn.Module()
         self.qkv.kernel = nn.Parameter(_lecun_normal(
             (channels, 3, num_heads, hd), channels, generator))
@@ -206,7 +228,8 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x):
         B, C = x.shape[0], x.shape[-1]
-        h = self.GroupNorm_0(x)
+        h = all_gather_spatial(self.GroupNorm_0(x), self.ctx)
+        full = h.shape
         seq = h.reshape(B, -1, C).float()
         qkv = seq @ self.qkv.kernel.reshape(C, -1) + self.qkv.bias.reshape(-1)
         qkv = qkv.reshape(B, seq.shape[1], 3, self.num_heads, -1)
@@ -215,11 +238,13 @@ class AttentionBlock(nn.Module):
         attn = torch.einsum("bnts,bsnh->btnh", logits.softmax(-1), v)
         out = (attn.reshape(B, seq.shape[1], -1)
                @ self.proj.kernel.reshape(-1, C) + self.proj.bias)
-        return x + out.reshape(x.shape).to(x.dtype)
+        out = take_local_spatial(out.reshape(full), self.ctx)
+        return x + out.to(x.dtype)
 
 
 class CUNet(nn.Module):
-    """``shape`` is (C_out, *spatial); inputs and outputs are channels-last.
+    """``shape`` is (C_out, *spatial), the whole field's; inputs and outputs
+    are channels-last (this rank's slab under a sharded ``ctx``).
     ``device=None`` means CUDA (and raises without it)."""
 
     def __init__(
@@ -241,6 +266,7 @@ class CUNet(nn.Module):
         remat_blocks: Sequence[str] = (),
         device=None,
         generator: Optional[torch.Generator] = None,
+        ctx: ShardCtx = NO_SHARD,
     ):
         super().__init__()
         dev = resolve_device(device)
@@ -260,6 +286,7 @@ class CUNet(nn.Module):
         self.remat = remat
         self.remat_levels = remat_levels
         self.remat_blocks = tuple(remat_blocks)
+        self.ctx = ctx
 
         g, pm, ng = generator, conv_padding_mode, norm_groups
         c0 = self.chs[0]
@@ -274,10 +301,10 @@ class CUNet(nn.Module):
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, ng, dropout_prob, pm,
-                                           emb_dim, g))
+                                           emb_dim, g, ctx))
 
         self.conv_in = Conv(shape[0] + s_conditioning_channels, c0, 3,
-                            padding_mode=pm, generator=g)
+                            padding_mode=pm, generator=g, ctx=ctx)
         skips, h = [c0], c0
         for level, ch in enumerate(self.chs):
             for blk in range(num_res_blocks):
@@ -287,12 +314,13 @@ class CUNet(nn.Module):
             if level < len(self.chs) - 1:
                 self.add_module(f"downsample_{level}",
                                 Conv(ch, ch, 3, stride=2, padding_mode=pm,
-                                     generator=g))
+                                     generator=g, ctx=ctx))
                 skips.append(ch)
         res("mid_0", h, self.chs[-1])
         if mid_attn:
             self.mid_attn_block = AttentionBlock(self.chs[-1],
-                                                 n_attention_heads, ng, g)
+                                                 n_attention_heads, ng, g,
+                                                 ctx)
         res("mid_1", self.chs[-1], self.chs[-1])
         h = self.chs[-1]
         for level, ch in reversed(list(enumerate(self.chs))):
@@ -301,9 +329,11 @@ class CUNet(nn.Module):
                 h = ch
             if level > 0:
                 self.add_module(f"upsample_{level}",
-                                Conv(ch, ch, 3, padding_mode=pm, generator=g))
-        self.norm_out = GroupNorm(h, ng, act="silu")
-        self.conv_out = Conv(h, shape[0], 3, padding_mode=pm, zero_init=True)
+                                Conv(ch, ch, 3, padding_mode=pm, generator=g,
+                                     ctx=ctx))
+        self.norm_out = GroupNorm(h, ng, act="silu", ctx=ctx)
+        self.conv_out = Conv(h, shape[0], 3, padding_mode=pm, zero_init=True,
+                             ctx=ctx)
         self.to(dev)
 
     def _block_levels(self):
@@ -355,6 +385,11 @@ class CUNet(nn.Module):
                 f"got {len(v_conditionings)}")
         x = z.to(self.compute_dtype).contiguous()
         bsz = x.shape[0]
+        halvings = 2 ** (len(self.chs) - 1)
+        if self.ctx.sharded and x.shape[1] % halvings:
+            raise ValueError(
+                f"a rank's {x.shape[1]} planes do not divide by {halvings}: "
+                f"the {len(self.chs) - 1} downsamples need an even slab")
 
         emb = None
         if self.t_conditioning:

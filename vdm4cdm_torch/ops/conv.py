@@ -22,6 +22,23 @@ JAX layout (k, k, k, Cin, Cout):
     downsample, a k1 outside the multiples of 8) goes to ``torch.nn.functional.conv3d``, as the JAX package
     leaves these to XLA. Circular padding there is an explicit wrap pad and a
     valid conv; padding is the torch-style symmetric (k//2, k//2).
+
+Under spatial sharding (a sharded ``ctx``, ``vdm4cdm_tpu/ops/conv.py:111-150``)
+the split dim D is not padded locally: the slab is extended by the
+neighbours' halo planes (``parallel.halo.halo_exchange``) and the conv runs
+valid in z, padded in-plane only:
+
+  * k3/s1 with supported channels: a (1, 1) halo, then the z-halo kernels
+    through :class:`Conv3dK3S1` with ``zhalo`` (bias, residual and the
+    slab's own sums in-kernel; dx and dw are z-halo kernels too, and the
+    halo exchange's backward returns the halo planes' gradient to the
+    neighbours). On a CUDA tensor it launches them or raises: no library
+    conv stands in;
+  * k1: no halo, as unsharded;
+  * everything else (``conv_in``, ``conv_out``, the stride-2 downsample, a k3
+    outside the multiples of 8): a (k//2, k//2) halo, then
+    ``torch.nn.functional.conv3d`` valid in z and padded in H and W (a wrap
+    pad for circular).
 """
 
 from __future__ import annotations
@@ -31,29 +48,45 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.halo import NO_SHARD, ShardCtx, halo_exchange
 from .kernels import (conv3d_k3s1_dw, conv3d_k3s1_dx, conv3d_k3s1_fwd,
-                      mm1x1_dw, mm1x1_dx, mm1x1_fwd)
+                      conv3d_k3s1_zhalo_dw, conv3d_k3s1_zhalo_dx,
+                      conv3d_k3s1_zhalo_fwd, mm1x1_dw, mm1x1_dx, mm1x1_fwd)
 from .kernels.conv3d import supports
 from .pair import Pair
 
 
-class Conv3dK3S1(torch.autograd.Function):
-    """(x, w, bias, residual) -> (y, sums) through ``conv3d_k3s1_fwd``.
+# the (forward, dx, dw) wrappers of the k3/s1 conv, by z mode: SAME in z,
+# or valid in z on a haloed slab (``zhalo``)
+_K3S1_KERNELS = {
+    False: (conv3d_k3s1_fwd, conv3d_k3s1_dx, conv3d_k3s1_dw),
+    True: (conv3d_k3s1_zhalo_fwd, conv3d_k3s1_zhalo_dx, conv3d_k3s1_zhalo_dw),
+}
 
-    Backward, as the JAX package's ``_bs_bwd_core``: the output gradient is
-    cast to x's dtype; dx is the forward kernel on it with flipped, transposed
-    weights; (dw, db) come from ``conv3d_k3s1_dw`` in f32 and return in the
-    parameters' dtypes; the residual's gradient is the output gradient itself.
-    ``sums`` exists to feed the following GroupNorm, whose dx already carries
-    the whole statistics -> x dependence, so it is non-differentiable."""
+
+class Conv3dK3S1(torch.autograd.Function):
+    """(x, w, bias, residual) -> (y, sums) through ``conv3d_k3s1_fwd``, or
+    with ``zhalo`` through ``conv3d_k3s1_zhalo_fwd`` on a haloed slab x
+    (B, D + 2, H, W, Cin), y then having D planes.
+
+    Backward, as the JAX package's ``_bs_bwd_core`` (``_bwd_zh`` with
+    ``zhalo``): the output gradient is cast to x's dtype; dx is the forward
+    kernel on it with flipped, transposed weights (with ``zhalo`` full in z:
+    D + 2 planes); (dw, db) come from the dw kernel in f32 and return in the
+    parameters' dtypes; the residual's gradient is the output gradient
+    itself. ``sums`` exists to feed the following GroupNorm, whose dx already
+    carries the whole statistics -> x dependence, so it is
+    non-differentiable."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, residual, circular, with_sums):
+    def forward(ctx, x, w, bias, residual, circular, with_sums, zhalo=False):
+        fwd = _K3S1_KERNELS[zhalo][0]
         with torch.no_grad():
-            y, sums = conv3d_k3s1_fwd(x, w, bias, residual, circular=circular,
-                                      with_sums=with_sums)
+            y, sums = fwd(x, w, bias, residual, circular=circular,
+                          with_sums=with_sums)
         ctx.save_for_backward(x, w)
         ctx.circular = circular
+        ctx.zhalo = zhalo
         ctx.bias_dtype = None if bias is None else bias.dtype
         if sums is None:
             sums = x.new_empty(0)
@@ -63,15 +96,16 @@ class Conv3dK3S1(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct, _ct_sums):
         x, w = ctx.saved_tensors
+        _, dx_kernel, dw_kernel = _K3S1_KERNELS[ctx.zhalo]
         need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
         ct = ct.to(x.dtype).contiguous()
-        dx = conv3d_k3s1_dx(ct, w, ctx.circular) if need_x else None
+        dx = dx_kernel(ct, w, ctx.circular) if need_x else None
         dw = db = None
         if need_w or need_b:
-            dw, db = conv3d_k3s1_dw(x, ct, ctx.circular)
+            dw, db = dw_kernel(x, ct, ctx.circular)
             dw = dw.to(w.dtype) if need_w else None
             db = db.to(ctx.bias_dtype) if need_b else None
-        return dx, dw, db, (ct if need_r else None), None, None
+        return dx, dw, db, (ct if need_r else None), None, None, None
 
 
 class Conv1x1(torch.autograd.Function):
@@ -106,15 +140,18 @@ class Conv1x1(torch.autograd.Function):
         return dx, dw, db, (ct if need_r else None)
 
 
-def _library_conv(x, w, stride, circular):
+def _library_conv(x, w, stride, circular, pad_z=True):
+    """``F.conv3d`` with symmetric (k//2) padding; ``pad_z=False`` leaves D
+    unpadded (a haloed slab) and pads H and W only."""
     xc = x.permute(0, 4, 1, 2, 3)
     wc = w.to(x.dtype).permute(4, 3, 0, 1, 2)
     pad = w.shape[0] // 2
+    pz = pad if pad_z else 0
     if circular and pad:
-        y = F.conv3d(F.pad(xc, (pad,) * 6, mode="circular"), wc,
-                     stride=stride)
+        y = F.conv3d(F.pad(xc, (pad, pad, pad, pad, pz, pz),
+                           mode="circular"), wc, stride=stride)
     else:
-        y = F.conv3d(xc, wc, stride=stride, padding=pad)
+        y = F.conv3d(xc, wc, stride=stride, padding=(pz, pad, pad))
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
@@ -126,10 +163,12 @@ def conv_nd(
     padding_mode: str = "zeros",
     emit_stats: bool = False,
     residual: Optional[torch.Tensor] = None,
+    ctx: ShardCtx = NO_SHARD,
 ):
     """y = conv(x, w) + b (+ residual). With ``emit_stats`` returns
     (y, sums), sums the (B, 2, Cout) f32 (sum y, sum y^2) where the hand
-    kernel produced y, else None."""
+    kernel produced y, else None. Under a sharded ``ctx`` x is this rank's
+    slab of the split dim D, and so are y and the sums."""
     if padding_mode not in ("zeros", "circular"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if isinstance(x, Pair):
@@ -137,25 +176,30 @@ def conv_nd(
         if w.shape[-2] != x.channels:
             raise ValueError(f"w {tuple(w.shape)} for {x.channels} channels")
         ya = conv_nd(x.a, w[..., :ca, :], b, stride, padding_mode,
-                     residual=residual)
+                     residual=residual, ctx=ctx)
         return conv_nd(x.b, w[..., ca:, :], None, stride, padding_mode,
-                       emit_stats=emit_stats, residual=ya)
+                       emit_stats=emit_stats, residual=ya, ctx=ctx)
     if x.ndim != 5 or w.ndim != 5:
         raise NotImplementedError("the port runs 3D convolutions only")
     cin, cout = w.shape[-2], w.shape[-1]
     if x.shape[-1] != cin:
         raise ValueError(f"x has {x.shape[-1]} channels, w expects {cin}")
     k = w.shape[0]
+    circular = padding_mode == "circular"
     sums = None
     if k == 1 and stride == 1 and supports(cin, cout):
         out = Conv1x1.apply(x, w, b, residual)
     elif k == 3 and stride == 1 and supports(cin, cout):
-        out, sums = Conv3dK3S1.apply(x, w, b, residual,
-                                     padding_mode == "circular", emit_stats)
+        if ctx.sharded:
+            x = halo_exchange(x, ctx, 1, 1, periodic=circular)
+        out, sums = Conv3dK3S1.apply(x, w, b, residual, circular, emit_stats,
+                                     ctx.sharded)
         if not emit_stats:
             sums = None
     else:
-        out = _library_conv(x, w, stride, padding_mode == "circular")
+        if ctx.sharded and k > 1:
+            x = halo_exchange(x, ctx, k // 2, k // 2, periodic=circular)
+        out = _library_conv(x, w, stride, circular, pad_z=not ctx.sharded)
         if b is not None:
             out = out + b.to(out.dtype)
         if residual is not None:
