@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``vdm4cdm_torch``) on one H100.
 
-    python3 chip_smoke.py [--phases kernels,grads,...]
+    python3 chip_smoke.py [--phases kernels,grads,...] [--port DIR]
 
 Phases, each printing one JSON object per line (every failure propagates and
 the script exits non-zero, printing no result; ``--phases`` runs a subset
@@ -10,7 +10,9 @@ while developing and then prints no ``kernels`` or ``ok`` line):
   1. card     - nvidia-smi name and power limit;
   2. build    - nvcc of ``vdm4cdm_torch/csrc/*.cu`` from this checkout, all
                 sources at once;
-  3. kernels  - each hand kernel against its plain PyTorch version on the card
+  3. kernels  - the launch plans the conv sources report, against
+                ``ops/kernels/conv3d.py``'s mirrors (``plans`` line); then
+                each hand kernel against its plain PyTorch version on the card
                 at the model's shapes (B=2, circular and zeros, f32 and bf16,
                 TF32 off for the f32 references), with kernel, plain, library
                 and bound times: the conv forward, its use as the dx pass and
@@ -25,7 +27,15 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 the sampler's batch-1 128^3 shapes; then every kernel again at
                 the ``sfm`` phase's shapes (bf16, zeros padding, batch 4
                 forward and backward and batch 1 forward, every site), where
-                the ``kernels`` line's times, bounds and errors are taken;
+                the ``kernels`` line's times, bounds and errors are taken,
+                with one ``site`` line per conv site of ``conv_cases`` at
+                batch 4: forward, dx pass and dw, each with its kernel,
+                library and bound times. Library yardsticks run cuDNN on
+                ``channels_last_3d`` operands with ``cudnn.benchmark`` on
+                (restored after); ``--phases sites`` runs only the site
+                timings, and with ``--port DIR`` times the kernels of the
+                ``vdm4cdm_torch/`` in DIR (an earlier commit, unpacked) for
+                a before/after table on one card;
   4. parity   - eps_hat of the full-width VDM (chs 32..256) and the velocity
                 of the full-width SFM at 32^3, f32, on the card through the
                 kernels against the same weights on the CPU plain path;
@@ -121,6 +131,9 @@ SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
           "sharded", "profile")  # in the order they run
+# run only when asked: the conv sites' timings alone (the kernels phase
+# takes them too), for a before/after table with --port
+EXTRA_PHASES = ("sites",)
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
@@ -222,6 +235,46 @@ def bound_ms(flops: float, nbytes: float, dtype_name: str):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def library_time_ms(fn, iters: int) -> float:
+    """The time of one library call (a yardstick, used nowhere in the port)
+    with ``torch.backends.cudnn.benchmark`` on, so that cuDNN times its
+    algorithms for these shapes and layouts and keeps the fastest (the
+    warm-up calls pay for that search); the setting is restored after."""
+    import torch
+
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return cuda_time_ms(fn, iters, warmup=3)
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+def channels_last(t):
+    """An NCDHW-shaped tensor in ``channels_last_3d`` memory: the library
+    conv's operands all in the layout the port keeps its activations in."""
+    import torch
+
+    return t.contiguous(memory_format=torch.channels_last_3d)
+
+
+def conv_weight_grad(xc, ctc, wc, padding):
+    """The library's weight gradient of a stride-1 conv: one
+    ``aten.convolution_backward`` call asking for the weight's gradient
+    only, given a real weight tensor ``wc`` so that its layout is defined
+    (``torch.nn.grad.conv3d_weight`` passes an expanded, zero-stride one)."""
+    import torch
+
+    return torch.ops.aten.convolution_backward(
+        ctc, xc, wc, None, [1, 1, 1], [padding] * 3, [1, 1, 1], False,
+        [0, 0, 0], 1, (False, True, False))[1]
+
+
+LIB_CONV = "F.conv3d, channels_last_3d operands, cudnn.benchmark"
+LIB_WGRAD = ("aten.convolution_backward (weight only, no db), "
+             "channels_last_3d operands, cudnn.benchmark")
+
+
 def rel_err(got, ref) -> tuple[float, float]:
     err = (got.float() - ref.float()).abs().max().item()
     return err, err / max(1.0, ref.float().abs().max().item())
@@ -316,20 +369,21 @@ def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
             flops = 2.0 * 27 * cin * cout * vox
             nbytes = vox * (cin + 2 * cout) * elt + w.numel() * elt
             b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+            # x (B, D, H, W, C) seen as NCDHW is channels_last_3d already
             xc = x.permute(0, 4, 1, 2, 3)
-            wc = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+            wc = channels_last(w.to(dtype).permute(4, 3, 0, 1, 2))
+            bc = bias.to(dtype)
             if circ:
-                xp = F.pad(xc, (1,) * 6, mode="circular")
-                lib = lambda: F.conv3d(xp, wc, bias.to(dtype))  # noqa: E731
+                xp = channels_last(F.pad(xc, (1,) * 6, mode="circular"))
+                lib = lambda: F.conv3d(xp, wc, bc)  # noqa: E731
             else:
-                lib = lambda: F.conv3d(xc, wc, bias.to(dtype),  # noqa: E731
-                                       padding=1)
+                lib = lambda: F.conv3d(xc, wc, bc, padding=1)  # noqa: E731
             line.update(
                 ms=cuda_time_ms(lambda: K.conv3d_k3s1_fwd(
                     x, w, bias, res, circ, True), n),
                 plain_ms=cuda_time_ms(lambda: K.conv3d_k3s1_plain(
                     x, w, bias, res, circ, True), max(2, n // 4)),
-                library_ms=cuda_time_ms(lib, n),
+                library_ms=library_time_ms(lib, n), library_call=LIB_CONV,
                 bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
     emit(line)
     return line
@@ -443,7 +497,8 @@ def fail_unless(ok: bool, what: str, line: dict) -> None:
 def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
     """The dx pass (the forward kernel on ct with flipped, transposed
     weights) and ``conv3d_k3s1_dw`` against autograd through the plain conv
-    in f32, and dw/db also against the module's plain version."""
+    in f32, and dw/db also against the module's plain version. Returns the
+    (dx, dw) lines."""
     import torch.nn.functional as F
 
     dtype = getattr(torch, dtype_name)
@@ -472,12 +527,11 @@ def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
     def scaled(got, ref):
         return ((got - ref).abs().max() / ref.abs().max()).item()
 
-    line = {"phase": "kernel", "kernel": "conv3d_k3s1_fwd (dx pass)",
-            "shape": [batch, size, size, size, cout, cin], "mode": mode,
-            "dtype": dtype_name, "max_abs_err": dx_abs, "rel_err": dx_err,
-            "tol": tol_dx}
-    fail_unless(dx_err <= tol_dx, "dx pass disagrees", line)
-    emit(line)
+    dx_line = {"phase": "kernel", "kernel": "conv3d_k3s1_fwd (dx pass)",
+               "shape": [batch, size, size, size, cout, cin], "mode": mode,
+               "dtype": dtype_name, "max_abs_err": dx_abs, "rel_err": dx_err,
+               "tol": tol_dx}
+    fail_unless(dx_err <= tol_dx, "dx pass disagrees", dx_line)
     line = {"phase": "kernel", "kernel": "conv3d_k3s1_dw",
             "shape": [batch, size, size, size, cin, cout], "mode": mode,
             "dtype": dtype_name,
@@ -494,26 +548,42 @@ def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
         elt = x.element_size()
         vox = batch * size ** 3
         flops = 2.0 * 27 * cin * cout * vox
-        nbytes = vox * (cin + cout) * elt + (27 * cin * cout + cout) * 4
-        b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
-        xc = x.permute(0, 4, 1, 2, 3)
-        if circ:
-            xc = F.pad(xc, (1,) * 6, mode="circular")
-        ctc = ct.permute(0, 4, 1, 2, 3)
-        wshape = (cout, cin, 3, 3, 3)
+        wbytes = 27 * cin * cout * elt
         pad = 0 if circ else 1
+
+        def ncdhw(t):  # (B, D, H, W, C) as NCDHW, circular-padded if so
+            t = t.permute(0, 4, 1, 2, 3)
+            return channels_last(F.pad(t, (1,) * 6, mode="circular")) \
+                if circ else t
+
+        xc, ctc, ctp = ncdhw(x), ct.permute(0, 4, 1, 2, 3), ncdhw(ct)
+        wc = channels_last(w.to(dtype).permute(4, 3, 0, 1, 2))
+        wtc = channels_last(w.to(dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2))
+        w_t = w.flip(0, 1, 2).transpose(3, 4)
+        b_ms, b_by = bound_ms(flops, vox * (cout + cin) * elt + wbytes,
+                              dtype_name)
+        dx_line.update(
+            ms=cuda_time_ms(lambda: K.conv3d_k3s1_dx(ct, w, circ), n),
+            plain_ms=cuda_time_ms(lambda: K.conv3d_k3s1_plain(
+                ct, w_t, circular=circ), max(2, n // 4)),
+            library_ms=library_time_ms(
+                lambda: F.conv3d(ctp, wtc, padding=pad), n),
+            library_call=LIB_CONV + " (ct, flipped transposed weights)",
+            bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+        b_ms, b_by = bound_ms(
+            flops, vox * (cin + cout) * elt + (27 * cin * cout + cout) * 4,
+            dtype_name)
         line.update(
             ms=cuda_time_ms(lambda: K.conv3d_k3s1_dw(x, ct, circ), n),
             plain_ms=cuda_time_ms(
                 lambda: K.conv3d_k3s1_dw_plain(x, ct, circ), 2, 1),
-            library_ms=cuda_time_ms(
-                lambda: torch.nn.grad.conv3d_weight(xc, wshape, ctc,
-                                                    padding=pad), n),
-            library_call="torch.nn.grad.conv3d_weight (no db)",
-            dx_ms=cuda_time_ms(lambda: K.conv3d_k3s1_dx(ct, w, circ), n),
+            library_ms=library_time_ms(
+                lambda: conv_weight_grad(xc, ctc, wc, pad), n),
+            library_call=LIB_WGRAD,
             bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+    emit(dx_line)
     emit(line)
-    return line
+    return dx_line, line
 
 
 def norm_inputs(torch, size, C, dtype_name, batch, groups=8, S=None):
@@ -833,6 +903,7 @@ def time_dropout_apply(torch, K, size, C, batch):
 
 
 def phase_kernels(torch, K):
+    check_plans(torch, K)
     for size, cin, cout, combos in conv_cases():
         for mode, dtype_name in combos:
             check_conv(torch, K, size, cin, cout, mode, dtype_name, 2,
@@ -875,6 +946,57 @@ def phase_kernels(torch, K):
     return check_sfm_shapes(torch, K)
 
 
+def conv_sites(torch, K):
+    """Every conv site of ``conv_cases`` at the ``sfm`` phase's train-step
+    shapes (batch 4, bf16, zeros padding), checked and timed: the forward,
+    the dx pass and dw, each with its kernel, library and bound times. One
+    ``site`` line each; returns the 128^3 32 -> 32 site's forward and dw
+    lines (the ``kernels`` line's rows)."""
+    mode, dt = "zeros", "bfloat16"
+    heads = {}
+    keys = ("ms", "library_ms", "bound_ms", "bound_by")
+    for size, cin, cout, _ in conv_cases():
+        fwd = check_conv(torch, K, size, cin, cout, mode, dt, SFM_BATCH,
+                         True)
+        dx, dw = check_conv_bwd(torch, K, size, cin, cout, mode, dt,
+                                SFM_BATCH, True)
+        emit({"phase": "site", "shape": [SFM_BATCH, size, size, size, cin,
+                                         cout], "mode": mode, "dtype": dt,
+              **{part: {k: ln[k] for k in keys}
+                 for part, ln in (("fwd", fwd), ("dx", dx), ("dw", dw))}})
+        if (size, cin, cout) == (MAIN_SIZE, 32, 32):
+            heads["conv3d_k3s1_fwd"], heads["conv3d_k3s1_dw"] = fwd, dw
+    return heads
+
+
+def check_plans(torch, K):
+    """The launch plans the compiled conv sources report against
+    ``ops/kernels/conv3d.py``'s (``fwd_plan`` / ``dw_plan``, which the CPU
+    tests hold) at every conv and z-halo site, both dtypes."""
+    from vdm4cdm_torch.ops.kernels import conv3d as C
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sites = [(b, size, size, cin, cout) for b in (1, TRAIN_BATCH, SFM_BATCH)
+             for size, cin, cout, _ in conv_cases()]
+    sites += [(TRAIN_BATCH, local + dz, size, cin, cout)
+              for local, size, cin, cout, _ in zhalo_cases()
+              for dz in (0, 2)]
+    bad = []
+    for b, d, hw, cin, cout in sites:
+        for dtype in (torch.bfloat16, torch.float32):
+            for ci, co in ((cin, cout), (cout, cin)):
+                want = (C.fwd_plan(dtype, b, d, hw, hw, ci, co),
+                        C.dw_plan(dtype, b, d, hw, hw, ci, co, sms=sms))
+                got = C.compiled_plans(dtype, b, d, hw, hw, ci, co)
+                if got != want:
+                    bad.append({"site": [b, d, hw, ci, co, str(dtype)],
+                                "compiled": got, "python": want})
+    line = {"phase": "plans", "checked": 4 * len(sites), "sms": sms,
+            "mismatches": bad[:4]}
+    fail_unless(not bad, "launch plans differ", line)
+    emit(line)
+
+
 def check_sfm_shapes(torch, K):
     """Every kernel at the shapes the ``sfm`` phase gives it: bf16, zeros
     padding, batch 4 (the train steps; forward and backward at every conv,
@@ -884,15 +1006,8 @@ def check_sfm_shapes(torch, K):
     and error at its 128^3 site at batch 4, the shapes whose launches that
     line counts."""
     size, mode, dt = MAIN_SIZE, "zeros", "bfloat16"
-    heads = {}
+    heads = conv_sites(torch, K)
     for csize, cin, cout, _ in conv_cases():
-        head = (csize, cin, cout) == (size, 32, 32)
-        fwd = check_conv(torch, K, csize, cin, cout, mode, dt, SFM_BATCH,
-                         head)
-        dw = check_conv_bwd(torch, K, csize, cin, cout, mode, dt, SFM_BATCH,
-                            head)
-        if head:
-            heads["conv3d_k3s1_fwd"], heads["conv3d_k3s1_dw"] = fwd, dw
         check_conv(torch, K, csize, cin, cout, mode, dt, 1, False)
     for nsize, C in NORM_CASES:
         head = (nsize, C) == (size, 32)
@@ -1417,13 +1532,15 @@ def check_zhalo(torch, K, local, size, cin, cout, mode, dtype_name, batch,
         wbytes = 27 * cin * cout * elt
         pad = (1, 1, 1, 1, 0, 0)
         xc = xh.permute(0, 4, 1, 2, 3)
-        xp = F.pad(xc, pad, mode="circular") if circ else F.pad(xc, pad)
-        wc = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+        xp = channels_last(F.pad(xc, pad, mode="circular") if circ
+                           else F.pad(xc, pad))
+        wc = channels_last(w.to(dtype).permute(4, 3, 0, 1, 2))
         ctc = ct.permute(0, 4, 1, 2, 3)
         ctp = F.pad(ctc, pad[:4] + (2, 2))
         if circ:
             ctp = F.pad(F.pad(ctc, (0, 0, 0, 0, 2, 2)), pad, mode="circular")
-        wtc = w.to(dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+        ctp = channels_last(ctp)
+        wtc = channels_last(w.to(dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2))
         biasc = bias.to(dtype)
         timings = {
             "conv3d_k3s1_zhalo_fwd": (
@@ -1431,22 +1548,20 @@ def check_zhalo(torch, K, local, size, cin, cout, mode, dtype_name, batch,
                 lambda: K.conv3d_k3s1_zhalo_plain(xh, w, bias, res, circ,
                                                   True),
                 lambda: F.conv3d(xp, wc, biasc),
-                "F.conv3d valid in z on the in-plane padded slab",
+                LIB_CONV + ", valid in z on the in-plane padded slab",
                 (vin * cin + 2 * vout * cout) * elt + wbytes),
             "conv3d_k3s1_zhalo_dx": (
                 lambda: K.conv3d_k3s1_zhalo_dx(ct, w, circ),
                 lambda: K.conv3d_k3s1_zhalo_dx_plain(ct, w, circ),
                 lambda: F.conv3d(ctp, wtc),
-                "F.conv3d on ct padded by 2 zero planes in z, flipped "
+                LIB_CONV + ", on ct padded by 2 zero planes in z, flipped "
                 "transposed weights",
                 (vout * cout + vin * cin) * elt + wbytes),
             "conv3d_k3s1_zhalo_dw": (
                 lambda: K.conv3d_k3s1_zhalo_dw(xh, ct, circ),
                 lambda: K.conv3d_k3s1_zhalo_dw_plain(xh, ct, circ),
-                lambda: torch.nn.grad.conv3d_weight(
-                    xp, (cout, cin, 3, 3, 3), ctc),
-                "torch.nn.grad.conv3d_weight on the in-plane padded slab "
-                "(no db)",
+                lambda: conv_weight_grad(xp, ctc, wc, 0),
+                LIB_WGRAD + ", on the in-plane padded slab",
                 (vin * cin + vout * cout) * elt + (27 * cin * cout + cout)
                 * 4),
         }
@@ -1454,7 +1569,7 @@ def check_zhalo(torch, K, local, size, cin, cout, mode, dtype_name, batch,
             b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
             lines[name].update(
                 ms=cuda_time_ms(kern, n), plain_ms=cuda_time_ms(plain, 2, 1),
-                library_ms=cuda_time_ms(lib, n), library_call=lib_call,
+                library_ms=library_time_ms(lib, n), library_call=lib_call,
                 bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
     for line in lines.values():
         emit(line)
@@ -1745,9 +1860,10 @@ _TRITON = {"sums_kernel": "gn_sums", "apply_kernel": "gn_apply",
 
 
 def _category(name: str) -> str:
-    if "conv3d_k3s1_kernel" in name:
+    # conv3d_k3s1_{bf16,f32}_kernel and conv3d_dw_{bf16,f32}_kernel
+    if "conv3d_k3s1_" in name and "_kernel" in name:
         return "conv3d_k3s1_fwd (forward and dx)"
-    if "conv3d_dw_kernel" in name:
+    if "conv3d_dw_" in name and "_kernel" in name:
         return "conv3d_k3s1_dw"
     if "mm1x1_fwd_kernel" in name:
         return "mm1x1_fwd (forward and dx)"
@@ -1910,25 +2026,35 @@ def phase_build(_build):
 
 
 def main() -> int:
+    global LINES_FILE
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of " + ",".join(PHASES))
+                        help="comma-separated subset of "
+                        + ",".join(PHASES + EXTRA_PHASES))
+    parser.add_argument("--port", default=None, help=(
+        "import vdm4cdm_torch from this directory instead of the one beside "
+        "the script (e.g. an unpacked earlier commit, to time its kernels "
+        "in the same call: --phases sites --port DIR); its lines go to "
+        "chip_smoke_lines-<dir name>.jsonl"))
     args = parser.parse_args()
     phases = [ph for ph in args.phases.split(",") if ph]
-    unknown = sorted(set(phases) - set(PHASES))
+    unknown = sorted(set(phases) - set(PHASES + EXTRA_PHASES))
     if unknown:
         parser.error(f"unknown phases {unknown}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "vdm4cdm_torch" / "csrc").is_dir():
-        print("chip_smoke: vdm4cdm_torch/ not found beside this script",
+    port = pathlib.Path(args.port).resolve() if args.port else ROOT
+    if not (port / "vdm4cdm_torch" / "csrc").is_dir():
+        print(f"chip_smoke: vdm4cdm_torch/ not found in {port}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(port))
+    if args.port:
+        LINES_FILE = OUT_DIR / f"chip_smoke_lines-{port.name}.jsonl"
     import vdm4cdm_torch as vt
     from vdm4cdm_torch.ops import kernels as K
     from vdm4cdm_torch.ops.kernels import _build
@@ -1941,11 +2067,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          "port": str(port.relative_to(ROOT) if port.is_relative_to(ROOT)
+                      else port),
           "note": "TF32 off for the f32 references and the f32 parity "
                   "phases (torch.backends.cudnn.allow_tf32 = False)"})
     phase_build(_build)
 
     heads = {}
+    if "sites" in phases:
+        conv_sites(torch, K)
     if "kernels" in phases:
         heads = phase_kernels(torch, K)
     if "parity" in phases:

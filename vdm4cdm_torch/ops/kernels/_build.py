@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with a
 plain C interface, loaded with ``ctypes``. The library lands in ``build/`` at
-the repository root, named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing runs on import.
+the repository root, named by a hash of its source, of every ``csrc/`` header
+it includes (directly or through another header) and of the flags, so an
+edited source or header rebuilds and an unchanged one loads at once. Nothing
+runs on import.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,6 +44,27 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_key(src: pathlib.Path, flags=NVCC_FLAGS) -> str:
+    """The build key of ``src``: a hash of its bytes, of the bytes of every
+    quoted include found beside it (followed through the headers it
+    includes in turn) and of the flags."""
+    h = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.is_file():
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + data + b"\0")
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(data)]
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()
+
+
 def c_function(source: str, name: str, argtypes):
     """The C entry ``name`` of ``csrc/<source>`` (compiled if needed), taking
     ``argtypes`` and returning the launch's ``cudaGetLastError()`` as int."""
@@ -60,8 +84,7 @@ def library(source: str) -> ctypes.CDLL:
         if source in _libs:
             return _libs[source]
         src = CSRC / source
-        key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
+        out = BUILD_DIR / f"{src.stem}-{source_key(src)[:16]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()

@@ -1,17 +1,22 @@
-"""SAME 3x3x3 stride-1 convolution, forward and backward: the CUDA kernels and
-their plain versions.
+"""SAME 3x3x3 stride-1 convolution, forward and backward: the CUDA kernels,
+their launch plans and their plain versions.
 
 Replaces the Pallas TPU kernel ``vdm4cdm_tpu/ops/pallas/conv3d.py::
 _fwd_kernel`` as reached through ``_conv_pallas_raw_packed`` (the packed,
 bias-folding, stats-emitting entry ``conv3d_pallas_packed_bs``). The kernel is
-``csrc/conv3d_fwd.cu``: an implicit GEMM (M = voxels, N = Cout, K = 27 * Cin)
-with wrap or zero index math in its gather, bf16 on the tensor cores through
-``mma.sync`` and f32 on FMAs, f32 accumulation, bias and an optional residual
-added before the cast, and optional per-(batch, channel) sums (sum y, sum y^2)
-of the f32 pre-cast output. On the H100 the tensor cores bound it at the
-flagship widths (hundreds of operations per byte moved); its shared-memory
-tiles keep the 27 tap re-reads of each input voxel in L2 and out of device
-memory. The source file says more.
+``csrc/conv3d_fwd.cu``: f32 accumulation, bias and an optional residual added
+before the cast, and optional per-(batch, channel) sums (sum y, sum y^2) of
+the f32 pre-cast output. On the H100 it is bound by the tensor cores at every
+site from 32 -> 32 channels up (about 290 operations a byte there, the card's
+balance point). Its bf16 path cuts the output into bricks of 4 x 8 x 8 voxels
+x 32 or 64 output channels; a CTA stages the brick's haloed input (6 x 10 x
+10 voxels) in shared memory once per 16-channel chunk, streams the chunk's
+weights beside it one kz plane of 9 taps at a time, and forms every tap
+from that one staging with ``ldmatrix`` at shifted row addresses on the
+tensor cores (``mma.sync`` at 32 output channels a CTA, ``wgmma`` with A
+from registers at 64), so each input byte crosses L2 about 2.3 times per
+Cout tile instead of 27. The f32 path (parity checks only) stays an
+implicit GEMM on FMAs. The source file says more.
 
 The plain version computes the same function with ``torch.nn.functional.
 conv3d`` in f32. CPU tensors go to it; CUDA tensors go to the kernel.
@@ -22,10 +27,20 @@ weights flipped in space and transposed in (Cin, Cout), under the same padding
 mode, as the TPU package runs ``_conv_pallas_raw_packed`` on ``ct``. The
 weight and bias gradients are ``conv3d_k3s1_dw``, the kernel
 ``csrc/conv3d_dw.cu``, which replaces the Pallas ``_dw_kernel`` (reached
-through ``_conv_pallas_dw``): per tap a GEMM with the voxels as the
-contraction, split over blocks that add their f32 tiles with atomics (the sum
-order is run-dependent), bf16 on the tensor cores and f32 on FMAs. Its plain
-version is 27 shifted matrix products in f32.
+through ``_conv_pallas_dw``): 27 GEMMs with the voxels as the contraction,
+also bound by the tensor cores. Its bf16 path walks a queue of (32 x 32
+(ci, co) tile, brick) items cut into one equal run per SM: a CTA stages each
+brick's ct and haloed x once and accumulates all 27 taps of its tile from
+them with ``wgmma`` (registers, flushed into f32 running sums in shared
+memory every 4 bricks), and adds a tile's sums to the output with atomics
+where its run leaves that tile (the sum order is run-dependent). Its f32
+path stays a block per tap on FMAs. Its plain version is 27 shifted matrix
+products in f32.
+
+:func:`fwd_plan` and :func:`dw_plan` are the kernels' launch plans (tile,
+grid, threads, shared memory, the dw split), computed here by the same rules
+as in the sources, where the CPU tests hold them; ``chip_smoke.py`` holds
+them equal to the plans the compiled sources report.
 
 The spatially sharded path adds the z-halo entries, the same two kernels
 with another z mode (``csrc/conv3d_fwd.cu`` says more). They replace the
@@ -44,7 +59,8 @@ haloed input and the 27 shifted products with no z pad.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,6 +143,123 @@ def conv3d_k3s1_dw_plain(x, ct, circular=False):
     tap, the f32 product of the shifted, padded x with ct over all
     voxels."""
     return conv3d_k3s1_zhalo_dw_plain(_z_pad(x, circular), ct, circular)
+
+
+# ------------------------------------------------------------ launch plans
+# The rules of csrc/conv3d_fwd.cu and csrc/conv3d_dw.cu (``make_plan``),
+# field for field; bf16 takes the tensor-core bricks, f32 the FMA paths.
+
+BRICK = (4, 8, 8)           # output voxels (d, h, w) of a bf16 CTA
+HALO = tuple(n + 2 for n in BRICK)
+SMEM_LIMIT = 232448         # bytes of shared memory a CTA may use (H100)
+SMS = 132                   # the H100 SXM's streaming multiprocessors
+_NH = HALO[0] * HALO[1] * HALO[2]
+FWD_KC = 16  # input channels a chunk
+
+
+def _fwd_smem(bn):
+    """Two input chunks, two kz planes of weights, the row-offset table and
+    the residual's brick (``Fwd<BN>`` in the source)."""
+    return (2 * _NH * FWD_KC * 2 + 2 * 9 * bn * FWD_KC * 2 + _NH * 4
+            + BRICK[0] * BRICK[1] * BRICK[2] * bn * 2)
+
+
+DW_TILE, DW_STAGES, DW_THREADS = 32, 2, 256
+# the stages, and the running sums of 14 m64 x 32 tiles in f32 (the 27
+# taps' 32 x 32 tile and db's)
+DW_SMEM = (DW_STAGES * (_NH + BRICK[0] * BRICK[1] * BRICK[2]) * DW_TILE * 2
+           + 14 * 64 * DW_TILE * 4)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+class FwdPlan(NamedTuple):
+    """``conv3d_k3s1_fwd``'s launch: kind 1 is bricks of tile_d x tile_h x
+    tile_w voxels (grid x = bricks x Cout tiles, y = batch), kind 0 runs of
+    tile_w flattened voxels (grid x = runs, y = Cout tiles, z = batch)."""
+    kind: int
+    tile_d: int
+    tile_h: int
+    tile_w: int
+    cout_tile: int
+    grid_x: int
+    grid_y: int
+    grid_z: int
+    threads: int
+    smem_bytes: int
+
+
+class DwPlan(NamedTuple):
+    """``conv3d_k3s1_dw``'s launch: kind 1 is bricks, a queue of ((ci, co)
+    tile, brick) items cut into ``splits`` runs of equal length, one a CTA
+    (grid x); kind 0 runs of tile_w voxels (grid x = splits, y = 27 x
+    tiles)."""
+    kind: int
+    tile_d: int
+    tile_h: int
+    tile_w: int
+    ci_tile: int
+    co_tile: int
+    splits: int
+    grid_x: int
+    grid_y: int
+    threads: int
+    smem_bytes: int
+
+
+def fwd_plan(dtype, B, D, H, W, cin, cout) -> FwdPlan:
+    """The forward kernel's plan for a (B, D, H, W) output (any z mode)."""
+    del cin  # the plan does not depend on it: Cin is walked in chunks
+    if dtype == torch.bfloat16:
+        bricks = math.prod(_cdiv(n, t) for n, t in zip((D, H, W), BRICK))
+        bn = 64 if cout % 64 == 0 else 32
+        return FwdPlan(1, *BRICK, bn, bricks * _cdiv(cout, bn), B, 1, 128,
+                       _fwd_smem(bn))
+    tile = 32 if cout <= 32 else 64
+    return FwdPlan(0, 0, 0, 128, tile, _cdiv(D * H * W, 128),
+                   _cdiv(cout, tile), B, 256, 0)
+
+
+def dw_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> DwPlan:
+    """The weight-gradient kernel's plan for a (B, D, H, W) output gradient
+    on a card of ``sms`` SMs."""
+    if dtype == torch.bfloat16:
+        bricks = B * math.prod(_cdiv(n, t) for n, t in zip((D, H, W), BRICK))
+        items = _cdiv(cin, DW_TILE) * _cdiv(cout, DW_TILE) * bricks
+        ctas = min(sms, items)
+        return DwPlan(1, *BRICK, DW_TILE, DW_TILE, ctas, ctas, 1, DW_THREADS,
+                      DW_SMEM)
+    bm, bn = (64 if cin >= 64 else 32), (64 if cout >= 64 else 32)
+    total = B * D * H * W
+    chunks = _cdiv(total, 32)
+    tiles = 27 * _cdiv(cin, bm) * _cdiv(cout, bn)
+    splits = max(1, min(_cdiv(2048, tiles), chunks // 8))
+    run = _cdiv(chunks, splits) * 32
+    splits = _cdiv(total, run)
+    return DwPlan(0, 0, 0, run, bm, bn, splits, splits, tiles,
+                  (bm // 4) * (bn // 4), 0)
+
+
+def compiled_plans(dtype, B, D, H, W, cin, cout):
+    """(forward, dw) plans as the compiled sources report them (the card's
+    SM count for dw); on the machine with the card."""
+    code = DTYPE_CODE[dtype]
+    out = []
+    for source, name, n, cls, args in (
+            ("conv3d_fwd.cu", "conv3d_k3s1_fwd_plan", 10, FwdPlan,
+             (code, B, D, H, W, cout)),
+            ("conv3d_dw.cu", "conv3d_k3s1_dw_plan", 11, DwPlan,
+             (code, B, D, H, W, cin, cout, 0))):
+        from ._build import c_function
+
+        fn = c_function(source, name,
+                        [ctypes.c_int] * len(args) + [ctypes.c_void_p])
+        buf = (ctypes.c_int * n)()
+        fn(*args, ctypes.addressof(buf))
+        out.append(cls(*buf))
+    return tuple(out)
 
 
 def _fn(source, name, n_ptrs, n_ints):
