@@ -10,32 +10,39 @@ while developing and then prints no ``kernels`` or ``ok`` line):
   1. card     - nvidia-smi name and power limit;
   2. build    - nvcc of ``vdm4cdm_torch/csrc/*.cu`` from this checkout, all
                 sources at once;
-  3. kernels  - the launch plans the conv sources report, against
-                ``ops/kernels/conv3d.py``'s mirrors (``plans`` line); then
-                each hand kernel against its plain PyTorch version on the card
-                at the model's shapes (B=2, circular and zeros, f32 and bf16,
-                TF32 off for the f32 references), with kernel, plain, library
-                and bound times: the conv forward, its use as the dx pass and
-                the dw kernel (also against autograd through the plain conv),
-                the GroupNorm sums/apply passes (apply also with dropout,
-                which holds the kernel's Philox bits to the plain version's,
-                timed at p = 0.1), the GroupNorm backward passes with SiLU
-                on/off and p in {0, 0.1}, a skip join with a straddling group
-                forward and backward, and the 1x1 projection (``mm1x1_fwd``
-                with and without bias and residual, its use as the dx pass,
-                ``mm1x1_dw``) at every ``skip_proj`` site of the flagship;
-                the sampler's batch-1 128^3 shapes; then every kernel again at
-                the ``sfm`` phase's shapes (bf16, zeros padding, batch 4
-                forward and backward and batch 1 forward, every site), where
-                the ``kernels`` line's times, bounds and errors are taken,
-                with one ``site`` line per conv site of ``conv_cases`` at
-                batch 4: forward, dx pass and dw, each with its kernel,
-                library and bound times. Library yardsticks run cuDNN on
+  3. kernels  - the launch plans the conv and 1x1 sources report, against
+                ``ops/kernels/conv3d.py``'s and ``lanemm.py``'s mirrors
+                (``plans`` line); then each hand kernel against its plain
+                PyTorch version on the card at the model's shapes (B=2,
+                circular and zeros, f32 and bf16, TF32 off for the f32
+                references), with kernel, plain, library and bound times:
+                the conv forward, its use as the dx pass and the dw kernel
+                (also against autograd through the plain conv), the
+                GroupNorm sums/apply passes (apply also with dropout, which
+                holds the kernel's Philox bits to the plain version's, timed
+                at p = 0.1 beside p = 0), the GroupNorm backward passes with
+                SiLU on/off and p in {0, 0.1}, their dropout masks bit for
+                bit (``check_dropout_bwd``), a skip join with a straddling
+                group forward and backward, and the 1x1 projection
+                (``mm1x1_fwd`` with and without bias and residual, with the
+                weight in f32 and in x's dtype, its use as the dx pass,
+                ``mm1x1_dw``) at every ``skip_proj`` site of the flagship
+                and past 256 channels; the sampler's batch-1 128^3 shapes;
+                then every kernel again at the ``sfm`` phase's shapes (bf16,
+                zeros padding, batch 4 forward and backward and batch 1
+                forward, every site), where the ``kernels`` line's times,
+                bounds and errors are taken, with one ``site`` line per conv
+                site of ``conv_cases`` (forward, dx pass and dw), per
+                ``skip_proj`` site (forward with and without the residual,
+                dx pass, dw) and per GroupNorm shape (each pass at p = 0.1
+                and p = 0) at batch 4, each with its kernel, library and
+                bound times. Library yardsticks run cuDNN on
                 ``channels_last_3d`` operands with ``cudnn.benchmark`` on
                 (restored after); ``--phases sites`` runs only the site
-                timings, and with ``--port DIR`` times the kernels of the
-                ``vdm4cdm_torch/`` in DIR (an earlier commit, unpacked) for
-                a before/after table on one card;
+                timings (the GroupNorm shapes also at batch 2), and with
+                ``--port DIR`` times the kernels of the ``vdm4cdm_torch/``
+                in DIR (an earlier commit, unpacked) for a before/after
+                table on one card;
   4. parity   - eps_hat of the full-width VDM (chs 32..256) and the velocity
                 of the full-width SFM at 32^3, f32, on the card through the
                 kernels against the same weights on the CPU plain path;
@@ -131,14 +138,15 @@ SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
           "sharded", "profile")  # in the order they run
-# run only when asked: the conv sites' timings alone (the kernels phase
-# takes them too), for a before/after table with --port
+# run only when asked: the conv, skip_proj and GroupNorm sites' timings
+# alone (the kernels phase takes them too), for a before/after table with
+# --port
 EXTRA_PHASES = ("sites",)
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
               (32, 256), (16, 256))
-DROPOUT_CASES = ((128, 32), (32, 128))
+DROPOUT_CASES = ((128, 32), (32, 128), (16, 30))  # 30: the per-element mask
 PAIR_CASE = (32, 256, 128, 8)
 
 # tolerances, as max |kernel - plain| / max(1, max |plain|):
@@ -176,6 +184,10 @@ DROPOUT_P = 0.1
 SHARDED_RANKS, SHARDED_TIMEOUT, SFM_SHARDED_STEPS = 2, 900.0, 5
 SHARDED_TOL = 1e-4
 
+
+# the fewest timed launches of a norm or 1x1 kernel: at 5, one stall in a
+# run of (4, 128^3) launches moved a mean by a quarter
+TIMED_MIN = 20
 
 LINES_FILE = OUT_DIR / "chip_smoke_lines.jsonl"  # every line, written through
 # in a rank of the sharded phase, the list its lines go to (the parent
@@ -419,14 +431,17 @@ def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
                 emit(line)
                 raise AssertionError(f"{name} disagrees: {line}")
             if timed:
-                n = max(5, min(100, int(4e8 // (batch * S * C))))
+                n = max(TIMED_MIN, min(100, int(4e8 // (batch * S * C))))
                 if kind == "sums":
                     nbytes = batch * S * C * elt + batch * 2 * C * 4
                     flops = 3.0 * batch * S * C
                     line.update(
                         ms=cuda_time_ms(lambda: K.gn_sums(x), n),
                         plain_ms=cuda_time_ms(lambda: K.gn_sums_plain(x), n),
-                        library_ms=None)
+                        library_ms=cuda_time_ms(lambda: torch.var_mean(
+                            x, dim=1, correction=0), n),
+                        library_call="torch.var_mean(x, dim=1, correction=0)"
+                                     " (the same per-(b, c) statistics)")
                 else:
                     nbytes = 2 * batch * S * C * elt + 2 * batch * C * 4
                     flops = 6.0 * batch * S * C
@@ -606,7 +621,8 @@ def check_dropout_apply(torch, K, size, C, dtype_name, batch):
     """``gn_apply`` at p = 0.1 against its plain version: the kernel's Philox
     bits equal the plain version's (one differing bit is an O(1) error), and
     the keep rate lies within 4 sigma of 1 - p."""
-    x, _, mean, inv, a, b = norm_inputs(torch, size, C, dtype_name, batch)
+    x, _, mean, inv, a, b = norm_inputs(torch, size, C, dtype_name, batch,
+                                        groups=math.gcd(C, 8))
     scale, shift = a * inv, b - mean * a * inv
     seed = 0x1234567890ABCDEF ^ (size * C)
     from vdm4cdm_torch.ops.kernels.philox import keep_mask_plain
@@ -640,6 +656,57 @@ def check_dropout_apply(torch, K, size, C, dtype_name, batch):
     emit(line)
 
 
+def check_dropout_bwd(torch, K, batch, S, C):
+    """The mask the two backward kernels regenerate, bit for bit against
+    the plain mask at p = 0.1, bf16. ``gn_bwd_apply`` with no activation,
+    a = inv = 1, mean = 0 and zero group means returns dx = dy = ct * keep /
+    (1 - p), so with ct = 1 its zeros are the dropped elements, at (batch,
+    S, C). ``gn_bwd_sums`` sums over the voxels, so it runs on 12 voxels
+    with x the powers 2^s: its sum of dy * xhat is, per (b, c), the 12-bit
+    integer sum of keep_s 2^s times 1 / (1 - p), which it carries exactly,
+    and its sum of dy the kept count times the same."""
+    from vdm4cdm_torch.ops.kernels.philox import keep_mask_plain
+
+    seed = 0x0FEDCBA987654321 ^ (S * C)
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(S + C)
+    lines = []
+    with torch.inference_mode():
+        x = torch.randn(batch, S, C, generator=gen, device="cuda").to(dt)
+        ones = torch.ones_like(x)
+        z, u = (torch.zeros(batch, C, device="cuda"),
+                torch.ones(batch, C, device="cuda"))
+        dx = K.gn_bwd_apply(x, ones, z, u, u, z, z, z, None, DROPOUT_P, seed)
+        keep = keep_mask_plain(seed, x.shape, DROPOUT_P, x.device)
+        n_apply = int(((dx != 0) != keep).sum().item())
+        del dx, keep, ones, x
+        s12 = 12
+        x = (2.0 ** torch.arange(s12, device="cuda", dtype=torch.float32))
+        x = x[None, :, None].expand(batch, s12, C).contiguous().to(dt)
+        sums = K.gn_bwd_sums(x, torch.ones_like(x), z, u, u, z, None,
+                             DROPOUT_P, seed)
+        keep = keep_mask_plain(seed, x.shape, DROPOUT_P, x.device)
+        scale = torch.tensor(1.0 / (1.0 - DROPOUT_P), dtype=torch.float32)
+        bits_k = torch.round(sums[:, 1].cpu() / scale).to(torch.int64)
+        count_k = torch.round(sums[:, 0].cpu() / scale).to(torch.int64)
+        pw = (2 ** torch.arange(s12, device="cuda"))[None, :, None]
+        bits_p = (keep.to(torch.int64) * pw).sum(1).cpu()
+        count_p = keep.to(torch.int64).sum(1).cpu()
+        n_sums = int((bits_k != bits_p).sum().item()
+                     + (count_k != count_p).sum().item())
+    for name, shape, n_bad in (("gn_bwd_apply (dropout mask)",
+                                [batch, S, C], n_apply),
+                               ("gn_bwd_sums (dropout mask)",
+                                [batch, s12, C], n_sums)):
+        line = {"phase": "kernel", "kernel": name, "shape": shape,
+                "dtype": "bfloat16", "p": DROPOUT_P,
+                "per_element_mask": C % 4 != 0, "mask_mismatches": n_bad}
+        fail_unless(n_bad == 0, f"{name} disagrees", line)
+        emit(line)
+        lines.append(line)
+    return lines
+
+
 def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
                    S=None):
     """``S`` voxels (default size^3)."""
@@ -665,7 +732,7 @@ def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
                                     seed)
         torch.cuda.synchronize()
     elt = x.element_size()
-    n = max(5, min(100, int(4e8 // (batch * S * C))))
+    n = max(TIMED_MIN, min(100, int(4e8 // (batch * S * C))))
     lines = []
     lib_ms = None
     if timed:
@@ -780,13 +847,14 @@ def mm1x1_cases():
         (16, 128, 256),                            # down_3_0, up_3_2 (skip)
         (16, 256, 256),                            # up_3_*
         (16, 48, 96),                              # channel tails
+        (16, 384, 384),  # past 256 channels (train3D_c_c's level 3)
     ]
 
 
 def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
     """``mm1x1_fwd`` with and without bias and residual, its use as the dx
     pass and ``mm1x1_dw`` against their plain versions; returns the forward
-    (bias and residual) and dw lines."""
+    (bias and residual), dx and dw lines."""
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(size * 999 + cin + cout)
     shape = (batch, size, size, size)
@@ -800,7 +868,8 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
     with torch.inference_mode():
         errs = {}
         for name, args in (("bias_residual", (x, w, bias, res)),
-                           ("bias", (x, w, bias)), ("bare", (x, w))):
+                           ("bias", (x, w, bias)), ("bare", (x, w)),
+                           ("weight_in_x_dtype", (x, w.to(dtype), bias))):
             errs[name] = rel_err(K.mm1x1_fwd(*args), K.mm1x1_plain(*args))
         dx_abs, dx_err = rel_err(K.mm1x1_dx(ct, w),
                                  K.mm1x1_plain(ct, w.t()))
@@ -826,13 +895,13 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
                     "mm1x1_dw disagrees", dwl)
         if timed:
             rows, elt = dims[0], x.element_size()
-            n = max(5, min(100, int(4e8 // (rows * (cin + cout)))))
+            n = max(TIMED_MIN, min(100, int(4e8 // (rows * (cin + cout)))))
             flops = 2.0 * rows * cin * cout
             x2, r2, c2 = (t.reshape(rows, -1) for t in (x, res, ct))
             wd, bd = w.to(dtype), bias.to(dtype)
+            wbytes = (cin + 1) * cout * 4  # the f32 weight and bias
             b_ms, b_by = bound_ms(
-                flops, rows * (cin + 2 * cout) * elt + cin * cout * elt,
-                dtype_name)
+                flops, rows * (cin + 2 * cout) * elt + wbytes, dtype_name)
             fwd.update(
                 ms=cuda_time_ms(lambda: K.mm1x1_fwd(x, w, bias, res), n),
                 plain_ms=cuda_time_ms(
@@ -846,22 +915,23 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
                 library_no_residual_ms=cuda_time_ms(
                     lambda: torch.addmm(bd, x2, wd), n),
                 bound_no_residual_ms=bound_ms(
-                    flops, rows * (cin + cout) * elt, dtype_name)[0])
+                    flops, rows * (cin + cout) * elt + wbytes, dtype_name)[0])
             # the wrapper on the host: wall time of a call in a long run of
-            # unsynchronized calls (the larger of host and device time), and
-            # of the wrapper's re-layout of the weight and bias alone
+            # unsynchronized calls (the larger of host and device time)
             fwd.update(
                 wall_us_per_call=wall_us(
-                    lambda: K.mm1x1_fwd(x, w, bias, res)),
-                relayout_wall_us=wall_us(
-                    lambda: (torch.empty((cout, cin), dtype=dtype,
-                                         device="cuda").copy_(w.t()),
-                             bias.float().contiguous())))
+                    lambda: K.mm1x1_fwd(x, w, bias, res)))
+            # dx: reads ct (rows, cout) and the f32 weight, writes (rows, cin)
+            b_ms, b_by = bound_ms(
+                flops, rows * (cin + cout) * elt + cin * cout * 4,
+                dtype_name)
             dxl.update(
                 ms=cuda_time_ms(lambda: K.mm1x1_dx(ct, w), n),
-                library_ms=cuda_time_ms(lambda: c2 @ wd.t(), n),
-                bound_ms=bound_ms(flops, rows * (cin + cout) * elt,
-                                  dtype_name)[0])
+                plain_ms=cuda_time_ms(lambda: K.mm1x1_plain(ct, w.t()),
+                                      max(2, n // 4)),
+                library_ms=cuda_time_ms(lambda: torch.mm(c2, wd.t()), n),
+                library_call="torch.mm(ct, w.t()), w in ct's dtype",
+                bound_ms=b_ms, bound_by=b_by)
             b_ms, b_by = bound_ms(
                 flops, rows * (cin + cout) * elt + (cin + 1) * cout * 4,
                 dtype_name)
@@ -875,7 +945,7 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
                 bound_ms=b_ms, bound_by=b_by)
     for line in (fwd, dxl, dwl):
         emit(line)
-    return fwd, dwl
+    return fwd, dxl, dwl
 
 
 def time_dropout_apply(torch, K, size, C, batch):
@@ -885,7 +955,7 @@ def time_dropout_apply(torch, K, size, C, batch):
     scale, shift = a * inv, b - mean * a * inv
     seed = 0x1234567890ABCDEF ^ (size * C)
     S = size ** 3
-    n = max(5, min(100, int(4e8 // (batch * S * C))))
+    n = max(TIMED_MIN, min(100, int(4e8 // (batch * S * C))))
     with torch.inference_mode():
         line = {"phase": "kernel", "kernel": "gn_apply (dropout, timed)",
                 "shape": [batch, S, C], "dtype": "bfloat16", "p": DROPOUT_P,
@@ -929,6 +999,9 @@ def phase_kernels(torch, K):
         for dtype_name in ("bfloat16", "float32"):
             check_dropout_apply(torch, K, size, C, dtype_name, TRAIN_BATCH)
     time_dropout_apply(torch, K, MAIN_SIZE, 32, TRAIN_BATCH)
+    check_dropout_bwd(torch, K, TRAIN_BATCH, MAIN_SIZE ** 3, 32)
+    check_dropout_bwd(torch, K, TRAIN_BATCH, 32 ** 3, 128)
+    check_dropout_bwd(torch, K, TRAIN_BATCH, 16 ** 3, 30)
     for size, C in NORM_CASES:
         for dtype_name in ("bfloat16", "float32"):
             for act, p in (("silu", DROPOUT_P), ("silu", 0.0), (None, 0.0),
@@ -991,10 +1064,84 @@ def check_plans(torch, K):
                 if got != want:
                     bad.append({"site": [b, d, hw, ci, co, str(dtype)],
                                 "compiled": got, "python": want})
-    line = {"phase": "plans", "checked": 4 * len(sites), "sms": sms,
+    # the 1x1 projection: forward and dx widths of every skip_proj site
+    # (and the wide fallback), with and without a residual
+    from vdm4cdm_torch.ops.kernels import lanemm as L
+
+    mm_sites = [(b * size ** 3, k, n)
+                for b in (1, TRAIN_BATCH, SFM_BATCH)
+                for size, cin, cout in mm1x1_cases()
+                for k, n in ((cin, cout), (cout, cin))]
+    for rows, k, n in mm_sites:
+        for dtype in (torch.bfloat16, torch.float32):
+            for has_res in (False, True):
+                want = L.fwd_plan(dtype, rows, k, n, has_res, sms=sms)
+                got = L.compiled_plan(dtype, rows, k, n, has_res)
+                if got != want:
+                    bad.append({"mm1x1": [rows, k, n, str(dtype), has_res],
+                                "compiled": got, "python": want})
+    line = {"phase": "plans", "checked": 4 * len(sites),
+            "mm1x1_checked": 4 * len(mm_sites), "sms": sms,
             "mismatches": bad[:4]}
     fail_unless(not bad, "launch plans differ", line)
     emit(line)
+
+
+def mm1x1_sites(torch, K):
+    """Every ``skip_proj`` site of ``mm1x1_cases`` at the ``sfm`` phase's
+    train-step shapes (batch 4, bf16), checked and timed: the forward with
+    bias and residual, without the residual, the dx pass and dw, each with
+    its kernel, library and bound times. One ``site`` line each; returns the
+    (4, 128^3, 64 -> 32) site's forward and dw lines (the ``kernels`` line's
+    rows)."""
+    heads = {}
+    for size, cin, cout in mm1x1_cases():
+        fwd, dxl, dwl = check_mm1x1(torch, K, size, cin, cout, "bfloat16",
+                                    SFM_BATCH, True)
+        emit({"phase": "site", "kernel": "mm1x1",
+              "shape": [SFM_BATCH * size ** 3, cin, cout], "dtype": "bfloat16",
+              "fwd": {k: fwd[k] for k in ("ms", "library_ms", "bound_ms")},
+              "no_residual": {"ms": fwd["ms_no_residual"],
+                              "library_ms": fwd["library_no_residual_ms"],
+                              "bound_ms": fwd["bound_no_residual_ms"]},
+              **{part: {k: ln[k] for k in ("ms", "library_ms", "bound_ms")}
+                 for part, ln in (("dx", dxl), ("dw", dwl))}})
+        if (size, cin, cout) == (MAIN_SIZE, 64, 32):
+            heads["mm1x1_fwd"], heads["mm1x1_dw"] = fwd, dwl
+    return heads
+
+
+def norm_sites(torch, K, batch=SFM_BATCH):
+    """Every GroupNorm shape of ``NORM_CASES`` at ``batch``, bf16, checked
+    and timed: ``gn_sums``, ``gn_apply`` at p = 0 and 0.1, and the backward
+    pair (SiLU) at p = 0.1 and p = 0, so that the dropout mask's share of
+    each is measured. One ``site`` line each; returns the 128^3, 32-channel
+    lines (the ``kernels`` line's rows)."""
+    heads = {}
+    keys = ("ms", "library_ms", "bound_ms")
+    for size, C in NORM_CASES:
+        sums, apply = check_norm(torch, K, size, C, "bfloat16", batch, True)
+        drop = time_dropout_apply(torch, K, size, C, batch)
+        bwd = check_norm_bwd(torch, K, size, C, "bfloat16", batch, "silu",
+                             DROPOUT_P, True)
+        bwd0 = check_norm_bwd(torch, K, size, C, "bfloat16", batch, "silu",
+                              0.0, True)
+        emit({"phase": "site", "kernel": "norm",
+              "shape": [batch, size ** 3, C], "dtype": "bfloat16",
+              "p": DROPOUT_P,
+              "gn_sums": {k: sums[k] for k in keys},
+              "gn_apply": {"ms": drop["ms"], "ms_p0": drop["ms_p0"],
+                           "library_ms": apply["library_ms"],
+                           "bound_ms": drop["bound_ms"]},
+              **{name: {"ms": ln["ms"], "ms_p0": ln0["ms"],
+                        "library_ms": ln["library_ms"],
+                        "bound_ms": ln["bound_ms"]}
+                 for name, ln, ln0 in (("gn_bwd_sums", bwd[0], bwd0[0]),
+                                       ("gn_bwd_apply", bwd[1], bwd0[1]))}})
+        if (size, C) == (MAIN_SIZE, 32):
+            heads["gn_sums"], heads["gn_apply"] = sums, apply
+            heads["gn_bwd_sums"], heads["gn_bwd_apply"] = bwd
+    return heads
 
 
 def check_sfm_shapes(torch, K):
@@ -1005,27 +1152,18 @@ def check_sfm_shapes(torch, K):
     only). Returns the ``kernels`` line's rows: each kernel's times, bound
     and error at its 128^3 site at batch 4, the shapes whose launches that
     line counts."""
-    size, mode, dt = MAIN_SIZE, "zeros", "bfloat16"
+    size, dt = MAIN_SIZE, "bfloat16"
     heads = conv_sites(torch, K)
     for csize, cin, cout, _ in conv_cases():
-        check_conv(torch, K, csize, cin, cout, mode, dt, 1, False)
+        check_conv(torch, K, csize, cin, cout, "zeros", dt, 1, False)
+    heads.update(norm_sites(torch, K))
     for nsize, C in NORM_CASES:
-        head = (nsize, C) == (size, 32)
-        fwd = check_norm(torch, K, nsize, C, dt, SFM_BATCH, head)
-        bwd = check_norm_bwd(torch, K, nsize, C, dt, SFM_BATCH, "silu",
-                             DROPOUT_P, head)
         check_norm_bwd(torch, K, nsize, C, dt, SFM_BATCH, None, 0.0, False)
-        if head:
-            heads["gn_sums"], heads["gn_apply"] = fwd
-            heads["gn_bwd_sums"], heads["gn_bwd_apply"] = bwd
         check_norm(torch, K, nsize, C, dt, 1, False)
     check_dropout_apply(torch, K, size, 32, dt, SFM_BATCH)
-    for batch in (SFM_BATCH, 1):
-        for msize, cin, cout in mm1x1_cases():
-            lines = check_mm1x1(torch, K, msize, cin, cout, dt, batch,
-                                timed=msize == size)
-            if (batch, msize, cin, cout) == (SFM_BATCH, size, 64, 32):
-                heads["mm1x1_fwd"], heads["mm1x1_dw"] = lines
+    heads.update(mm1x1_sites(torch, K))
+    for msize, cin, cout in mm1x1_cases():
+        check_mm1x1(torch, K, msize, cin, cout, dt, 1, False)
     return heads
 
 
@@ -1865,7 +2003,8 @@ def _category(name: str) -> str:
         return "conv3d_k3s1_fwd (forward and dx)"
     if "conv3d_dw_" in name and "_kernel" in name:
         return "conv3d_k3s1_dw"
-    if "mm1x1_fwd_kernel" in name:
+    # mm1x1_fwd_tc_kernel (persistent, bf16) and mm1x1_fwd_kernel
+    if "mm1x1_fwd" in name and "_kernel" in name:
         return "mm1x1_fwd (forward and dx)"
     if "mm1x1_dw_kernel" in name:
         return "mm1x1_dw"
@@ -2076,6 +2215,9 @@ def main() -> int:
     heads = {}
     if "sites" in phases:
         conv_sites(torch, K)
+        mm1x1_sites(torch, K)
+        norm_sites(torch, K)
+        norm_sites(torch, K, TRAIN_BATCH)
     if "kernels" in phases:
         heads = phase_kernels(torch, K)
     if "parity" in phases:

@@ -1,6 +1,7 @@
 """The port's dropout: a keep-mask that is a function of (seed, element
 index, p), Philox-4x32-10 in torch integer ops (the plain version of the
-device function the Triton kernels inline). The TPU package's bits come from
+device function the Triton kernels inline), element i taking word i mod 4
+of the call on counter i div 4. The TPU package's bits come from
 the TPU's own generator and cannot be reproduced, so this file checks the
 function itself (known-answer vectors of Philox-4x32-10 from the Random123
 test suite), its distribution (keep rate within 4 sigma), and what the norm
@@ -41,18 +42,60 @@ def test_philox_known_answers(counter, key, want):
 
 
 def test_bits_use_the_64_bit_index_and_seed():
-    idx = torch.tensor([0, 1, 2 ** 32, 2 ** 32 + 1], dtype=torch.int64)
+    """Element i takes word i mod 4 of the call on counter i div 4: indices
+    0..3 are the four words of the first known answer; 4 * 2^32 is the first
+    index whose counter has a high word, and the seed's high word is its
+    key's."""
+    idx = torch.tensor([0, 1, 2, 3, 2 ** 32, 2 ** 32 + 1, 4 * 2 ** 32,
+                        4 * 2 ** 32 + 3], dtype=torch.int64)
     bits = philox.philox_bits_plain(0, idx)
-    assert int(bits[0]) == 0x6627E8D5
-    assert len(set(bits.tolist())) == 4
+    assert tuple(int(b) for b in bits[:4]) == KAT[0][2]
+    assert len(set(bits.tolist())) == 8
+    hi = philox.philox_4x32(0, *[torch.tensor([c]) for c in (0, 1, 0, 0)])
+    assert (int(bits[6]), int(bits[7])) == (int(hi[0]), int(hi[3]))
     other = philox.philox_bits_plain(1 << 32, idx)  # differs in the high word
     assert not torch.equal(bits, other)
     assert philox.seed_words((0xFFFFFFFF << 32) | 5) == (5, -1)
 
 
+def _reference_bits(seed, indices):
+    """bits(seed, i) one element at a time: word i % 4 of Philox-4x32-10 on
+    the counter (i // 4 low, i // 4 high, 0, 0)."""
+    out = []
+    for i in indices:
+        q = i // 4
+        words = philox.philox_4x32(
+            seed, *[torch.tensor([c], dtype=torch.int64)
+                    for c in (q & 0xFFFFFFFF, q >> 32, 0, 0)])
+        out.append(int(words[i % 4]))
+    return out
+
+
+@pytest.mark.parametrize("start", [0, 2 ** 32 - 5, 4 * 2 ** 32 - 6,
+                                   2 ** 40 + 1])
+@pytest.mark.parametrize("seed", [0, 0x1234567890ABCDEF])
+def test_mask_bits_equal_a_per_element_reference(seed, start):
+    """Over windows that straddle 2^32 and 4 * 2^32 and start off a group's
+    boundary."""
+    stop = start + 13
+    want = _reference_bits(seed, range(start, stop))
+    idx = torch.arange(start, stop, dtype=torch.int64)
+    assert philox.philox_bits_plain(seed, idx).tolist() == want
+
+
+@pytest.mark.parametrize("q", [0, 5, 2 ** 30 - 1, 2 ** 32 + 7])
+def test_four_consecutive_indices_take_the_four_words_of_one_call(q):
+    seed = 0xA4093822299F31D0
+    words = philox.philox_4x32(
+        seed, *[torch.tensor([c], dtype=torch.int64)
+                for c in (q & 0xFFFFFFFF, q >> 32, 0, 0)])
+    idx = torch.arange(4 * q, 4 * q + 4, dtype=torch.int64)
+    assert philox.philox_bits_plain(seed, idx).tolist() == [
+        int(w) for w in words]
+
+
 @pytest.mark.parametrize("p", [0.1, 0.5])
-def test_keep_rate_and_threshold(p):
-    shape = (2, 1000, 64)
+def test_keep_rate_and_threshold(p, shape=(2, 1000, 64)):
     keep = philox.keep_mask_plain(1234, shape, p, "cpu")
     assert keep.shape == shape and keep.dtype == torch.bool
     n = keep.numel()
@@ -65,13 +108,25 @@ def test_keep_rate_and_threshold(p):
         philox.keep_threshold(1.0)
 
 
-def test_mask_depends_on_index_not_on_chunking(monkeypatch):
+def test_mask_depends_on_index_not_on_chunking(monkeypatch, chunk=64):
     whole = philox.keep_mask_plain(7, (3, 50, 8), 0.3, "cpu")
-    monkeypatch.setattr(philox, "_PLAIN_CHUNK", 64)
+    assert torch.equal(whole.reshape(-1), philox.philox_bits_plain(
+        7, torch.arange(1200)) < philox.keep_threshold(0.3))
+    monkeypatch.setattr(philox, "_PLAIN_CHUNK", chunk)
     assert torch.equal(philox.keep_mask_plain(7, (3, 50, 8), 0.3, "cpu"),
                        whole)
     assert torch.equal(philox.keep_mask_plain(7, (1200,), 0.3, "cpu"),
                        whole.reshape(-1))
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_keep_rate_where_channels_are_not_a_multiple_of_4(p):
+    test_keep_rate_and_threshold(p, (2, 999, 30))
+
+
+@pytest.mark.parametrize("chunk", [63, 1])
+def test_mask_chunks_may_start_inside_a_group(monkeypatch, chunk):
+    test_mask_depends_on_index_not_on_chunking(monkeypatch, chunk)
 
 
 def test_mix_seed_separates_steps_and_sites():

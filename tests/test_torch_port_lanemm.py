@@ -223,3 +223,66 @@ def test_wrappers_are_counted_kernels_and_count_no_cpu_call():
     mm1x1_fwd(torch.zeros(4, 8), torch.zeros(8, 8))
     mm1x1_dw(torch.zeros(4, 8), torch.zeros(4, 8))
     assert (mm1x1_fwd.launches, mm1x1_dw.launches) == before
+
+
+# every skip_proj width of the 3D presets (K -> N; the dx pass runs N -> K),
+# the channel tails and the 384-channel level of train3D_c_c
+PORT_WIDTHS = [(64, 32), (32, 32), (32, 64), (128, 64), (64, 64), (64, 128),
+               (256, 128), (128, 128), (128, 256), (256, 256), (48, 96),
+               (384, 384)]
+
+
+def _oracle(x, w, b, ct, dtype):
+    """(y, dx) of y = x @ w + b and of its input gradient for ct: through
+    ``lane_matmul`` in interpret mode where it takes the shape (f32,
+    lane-dense widths), else XLA's product with f32 accumulation."""
+    jdt = jnp.dtype(dtype)
+    K, N = w.shape
+    if dtype == "float32" and jsupports(x.shape, K, N, jnp.float32):
+        with pltpu.force_tpu_interpret_mode():
+            y, vjp = jax.vjp(lambda v: lane_matmul(v, jnp.asarray(w),
+                                                   jnp.asarray(b)),
+                             jnp.asarray(x))
+            (dx,) = vjp(jnp.asarray(ct))
+        return y, dx
+    jw = jnp.asarray(w).astype(jdt)
+    y = jnp.matmul(jnp.asarray(x, jdt), jw,
+                   preferred_element_type=jnp.float32) + jnp.asarray(b)
+    dx = jnp.matmul(jnp.asarray(ct, jdt), jw.T,
+                    preferred_element_type=jnp.float32)
+    return y.astype(jdt), dx.astype(jdt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", PORT_WIDTHS, ids=str)
+def test_orientation_argument_matches_the_old_call_and_the_oracle(K, N,
+                                                                  dtype):
+    """``w_transposed``: the plain version reads w (K, N) or its transpose
+    (N, K) alike, forward and dx, and both agree with ``lane_matmul`` (or
+    the XLA oracle at widths it does not take)."""
+    x, w, b, ct = _data(6, (2, 16), K, N)
+    tx, tw, tb, tct = _t(x, dtype), _t(w), _t(b), _t(ct, dtype)
+    y_old = mm1x1_plain(tx, tw, tb)
+    assert torch.equal(mm1x1_plain(tx, tw, tb, w_transposed=False), y_old)
+    y_t = mm1x1_plain(tx, tw.t().contiguous(), tb, w_transposed=True)
+    dx_old = mm1x1_plain(tct, tw.t())
+    dx_new = mm1x1_plain(tct, tw, w_transposed=True)
+    assert torch.equal(dx_new, dx_old)
+    # the wrappers take the CPU tensors to the plain version unchanged
+    assert torch.equal(mm1x1_dx(tct, tw), dx_new)
+    assert torch.equal(mm1x1_fwd(tx, tw.t().contiguous(), tb,
+                                 w_transposed=True), y_t)
+    want_y, want_dx = _oracle(x, w, b, ct, dtype)
+    for got, want in ((y_old, want_y), (y_t, want_y), (dx_new, want_dx)):
+        assert got.dtype == tx.dtype
+        _close(got, np.asarray(jnp.asarray(want, jnp.float32)), TOL[dtype])
+
+
+def test_orientation_argument_checks_the_weight_shape():
+    x = torch.zeros(4, 16)
+    assert mm1x1_fwd(x, torch.zeros(32, 16), w_transposed=True).shape == (
+        4, 32)
+    with pytest.raises(ValueError, match="does not fit"):
+        mm1x1_fwd(x, torch.zeros(16, 32), w_transposed=True)
+    with pytest.raises(ValueError, match="does not fit"):
+        mm1x1_fwd(x, torch.zeros(32, 16))

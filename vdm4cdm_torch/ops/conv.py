@@ -113,8 +113,8 @@ class Conv1x1(torch.autograd.Function):
     layout (1, 1, 1, Cin, Cout).
 
     Backward, as the JAX package's ``lane_matmul``: the output gradient is
-    cast to x's dtype; dx is the forward kernel on it with the transposed
-    weight; (dw, db) come from ``mm1x1_dw`` in f32 and return in the
+    cast to x's dtype; dx is the forward kernel on it with the weight read
+    transposed, where it lies; (dw, db) come from ``mm1x1_dw`` in f32 and return in the
     parameters' dtypes; the residual's gradient is the output gradient
     itself."""
 

@@ -30,7 +30,8 @@ torch gives da, db and the group means m1, m2; ``gn_bwd_apply`` replaces
 dtype. Both share one device function, the port of ``_recompute_dy_xhat``.
 
 All four are bound by device memory on the H100 (a few operations per byte,
-about 60 more integer operations with dropout): the sums read x once, the
+about 25 more integer operations an element with dropout, one Philox call
+per four channels): the sums read x once, the
 apply reads x once and writes y once, the backward passes read x and the
 incoming gradient once each (and write dx once), each with contiguous row
 blocks so that loads are wide and coalesced.
@@ -49,9 +50,10 @@ import torch.nn.functional as F
 from . import philox
 from ._common import check_forward_only, check_operand, on_cuda
 
-# elements of x per program block (power of two)
+# elements of x per program block (power of two); the apply pass takes 4096:
+# with dropout on, 8192 (64 elements a thread) ran far slower on the H100
 _BLOCK_ELEMS_SUMS = 4096
-_BLOCK_ELEMS_APPLY = 8192
+_BLOCK_ELEMS_APPLY = 4096
 _BLOCK_ELEMS_BWD_SUMS = 2048
 _BLOCK_ELEMS_BWD_APPLY = 4096
 # target number of programs per batch element for the sums reduction
@@ -139,7 +141,8 @@ def _kernels():
     @triton.jit(do_not_specialize=unspecialized)
     def apply_kernel(x_ptr, a_ptr, b_ptr, y_ptr, S, C, seed_lo, seed_hi,
                      thresh, scale, SILU: tl.constexpr, DROPOUT: tl.constexpr,
-                     BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+                     GROUPED: tl.constexpr, BLOCK_S: tl.constexpr,
+                     BLOCK_C: tl.constexpr):
         pid = tl.program_id(0)
         b = tl.program_id(1)
         cols = tl.arange(0, BLOCK_C)
@@ -148,25 +151,29 @@ def _kernels():
         mask = (rows < S)[:, None] & cmask[None, :]
         av = tl.load(a_ptr + b * C + cols, mask=cmask, other=0.0)
         bv = tl.load(b_ptr + b * C + cols, mask=cmask, other=0.0)
-        offs = b.to(tl.int64) * S * C + rows[:, None] * C + cols[None, :]
+        row_base = b.to(tl.int64) * S * C + rows.to(tl.int64) * C
+        offs = row_base[:, None] + cols[None, :]
         v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         y = v * av[None, :] + bv[None, :]
         if SILU:
             y = y * tl.sigmoid(y)
         if DROPOUT:
-            keep = keep_fn(offs, seed_lo, seed_hi, thresh)
+            keep = keep_fn(offs, row_base, seed_lo, seed_hi, thresh, BLOCK_S,
+                           BLOCK_C, GROUPED)
             y = tl.where(keep, y * scale, 0.0)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
-    def dy_xhat(x_ptr, ct_ptr, offs, mask, mean, inv, av, bv, seed_lo,
-                seed_hi, thresh, scale, SILU: tl.constexpr,
-                DROPOUT: tl.constexpr):
+    def dy_xhat(x_ptr, ct_ptr, offs, row_base, mask, mean, inv, av, bv,
+                seed_lo, seed_hi, thresh, scale, SILU: tl.constexpr,
+                DROPOUT: tl.constexpr, GROUPED: tl.constexpr,
+                BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
         v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         xhat = (v - mean[None, :]) * inv[None, :]
         dy = tl.load(ct_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         if DROPOUT:
-            keep = keep_fn(offs, seed_lo, seed_hi, thresh)
+            keep = keep_fn(offs, row_base, seed_lo, seed_hi, thresh,
+                           BLOCK_S, BLOCK_C, GROUPED)
             dy = tl.where(keep, dy * scale, 0.0)
         if SILU:
             y = xhat * av[None, :] + bv[None, :]
@@ -178,8 +185,8 @@ def _kernels():
     def bwd_sums_kernel(x_ptr, ct_ptr, mean_ptr, inv_ptr, a_ptr, b_ptr,
                         out_ptr, S, C, rows_per_prog, seed_lo, seed_hi,
                         thresh, scale, SILU: tl.constexpr,
-                        DROPOUT: tl.constexpr, BLOCK_S: tl.constexpr,
-                        BLOCK_C: tl.constexpr):
+                        DROPOUT: tl.constexpr, GROUPED: tl.constexpr,
+                        BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
         pid = tl.program_id(0)
         b = tl.program_id(1)
         cols = tl.arange(0, BLOCK_C)
@@ -195,9 +202,11 @@ def _kernels():
         for r0 in range(0, rows_per_prog, BLOCK_S):
             rows = start + r0 + tl.arange(0, BLOCK_S)
             mask = (rows < S)[:, None] & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            dy, xhat = dy_xhat(x_ptr, ct_ptr, offs, mask, mean, inv, av, bv,
-                               seed_lo, seed_hi, thresh, scale, SILU, DROPOUT)
+            row_base = base + rows.to(tl.int64) * C
+            offs = row_base[:, None] + cols[None, :]
+            dy, xhat = dy_xhat(x_ptr, ct_ptr, offs, row_base, mask, mean, inv,
+                               av, bv, seed_lo, seed_hi, thresh, scale, SILU,
+                               DROPOUT, GROUPED, BLOCK_S, BLOCK_C)
             dy = tl.where(mask, dy, 0.0)
             acc1 += dy
             acc2 += dy * xhat
@@ -209,8 +218,8 @@ def _kernels():
     def bwd_apply_kernel(x_ptr, ct_ptr, mean_ptr, inv_ptr, a_ptr, b_ptr,
                          m1_ptr, m2_ptr, dx_ptr, S, C, seed_lo, seed_hi,
                          thresh, scale, SILU: tl.constexpr,
-                         DROPOUT: tl.constexpr, BLOCK_S: tl.constexpr,
-                         BLOCK_C: tl.constexpr):
+                         DROPOUT: tl.constexpr, GROUPED: tl.constexpr,
+                         BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
         pid = tl.program_id(0)
         b = tl.program_id(1)
         cols = tl.arange(0, BLOCK_C)
@@ -223,9 +232,11 @@ def _kernels():
         bv = tl.load(b_ptr + b * C + cols, mask=cmask, other=0.0)
         m1 = tl.load(m1_ptr + b * C + cols, mask=cmask, other=0.0)
         m2 = tl.load(m2_ptr + b * C + cols, mask=cmask, other=0.0)
-        offs = b.to(tl.int64) * S * C + rows[:, None] * C + cols[None, :]
-        dy, xhat = dy_xhat(x_ptr, ct_ptr, offs, mask, mean, inv, av, bv,
-                           seed_lo, seed_hi, thresh, scale, SILU, DROPOUT)
+        row_base = b.to(tl.int64) * S * C + rows.to(tl.int64) * C
+        offs = row_base[:, None] + cols[None, :]
+        dy, xhat = dy_xhat(x_ptr, ct_ptr, offs, row_base, mask, mean, inv, av,
+                           bv, seed_lo, seed_hi, thresh, scale, SILU, DROPOUT,
+                           GROUPED, BLOCK_S, BLOCK_C)
         dx = inv[None, :] * (dy * av[None, :] - m1[None, :]
                              - xhat * m2[None, :])
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
@@ -317,8 +328,8 @@ def gn_apply(x: torch.Tensor, a: torch.Tensor, bv: torch.Tensor,
     y = torch.empty_like(x)
     grid = (triton.cdiv(S, block_s), B)
     apply_kernel[grid](x, a, bv, y, S, C, lo, hi, thresh, scale, SILU=silu,
-                       DROPOUT=dropout_p > 0.0, BLOCK_S=block_s,
-                       BLOCK_C=block_c, num_warps=4)
+                       DROPOUT=dropout_p > 0.0, GROUPED=C % 4 == 0,
+                       BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4)
     gn_apply.launches += 1
     return y
 
@@ -350,7 +361,8 @@ def gn_bwd_sums(x: torch.Tensor, ct: torch.Tensor, mean: torch.Tensor,
     grid = (triton.cdiv(S, rows_per_prog), B)
     kernel[grid](x, ct, mean, inv, a, b, out, S, C, rows_per_prog, lo, hi,
                  thresh, scale, SILU=silu, DROPOUT=dropout_p > 0.0,
-                 BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4)
+                 GROUPED=C % 4 == 0, BLOCK_S=block_s, BLOCK_C=block_c,
+                 num_warps=4)
     gn_bwd_sums.launches += 1
     return out
 
@@ -378,8 +390,9 @@ def gn_bwd_apply(x: torch.Tensor, ct: torch.Tensor, mean: torch.Tensor,
     dx = torch.empty_like(x)
     grid = (triton.cdiv(S, block_s), B)
     kernel[grid](x, ct, mean, inv, a, b, m1, m2, dx, S, C, lo, hi, thresh,
-                 scale, SILU=silu, DROPOUT=dropout_p > 0.0, BLOCK_S=block_s,
-                 BLOCK_C=block_c, num_warps=4)
+                 scale, SILU=silu, DROPOUT=dropout_p > 0.0,
+                 GROUPED=C % 4 == 0, BLOCK_S=block_s, BLOCK_C=block_c,
+                 num_warps=4)
     gn_bwd_apply.launches += 1
     return dx
 

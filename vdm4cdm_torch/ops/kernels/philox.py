@@ -5,17 +5,20 @@ from the TPU's own generator, seeded per (batch, tile)
 (``vdm4cdm_tpu/ops/pallas/fused_norm.py::_dropout_mask``), so its bits depend
 on the tiling. Here the mask is a pure function:
 
-    bits(seed, i) = word 0 of Philox-4x32-10(key = (seed_lo, seed_hi),
-                                              counter = (i_lo, i_hi, 0, 0))
+    bits(seed, i) = word (i mod 4) of Philox-4x32-10(key = (seed_lo, seed_hi),
+                                     counter = (q_lo, q_hi, 0, 0)),  q = i div 4
     keep(seed, i, p) = bits(seed, i) < min(int((1 - p) * 2^32), 2^32 - 1)
 
 with ``seed`` the 64-bit seed of the dropout site and ``i`` the flat index of
-the element in its (B, S, C) stream. Because nothing depends on tiling, the
-forward pass and both backward passes regenerate the same mask and never
-store it, and the plain version below (torch integer ops, any device) gives
-the same bits as the Triton device function, which the kernels of
-``fused_norm.py`` inline. The generator costs about 60 integer operations an
-element, far below what a memory-bound pass has to spare on the H100.
+the element in its (B, S, C) stream: one Philox call gives the bits of four
+consecutive elements. Because nothing depends on tiling, the forward pass and
+both backward passes regenerate the same mask and never store it, and the
+plain version below (torch integer ops, any device) gives the same bits as
+the Triton device function, which the kernels of ``fused_norm.py`` inline.
+Where C is a multiple of 4, the four elements of a group are four channels
+of one voxel, so a kernel calls Philox once per group (about 25 integer
+operations an element) and spreads its words over the group; for other C it
+computes the same bits per element.
 
 Seeds are host integers: :func:`mix_seed` derives a site's seed from the
 step's seed and the site's index without touching the device.
@@ -85,10 +88,13 @@ def philox_4x32(seed: int, c0, c1, c2, c3):
 
 
 def philox_bits_plain(seed: int, index: torch.Tensor) -> torch.Tensor:
-    """bits(seed, i) for an int64 tensor of element indices."""
-    zero = torch.zeros_like(index)
-    return philox_4x32(seed, index & _MASK32, (index >> 32) & _MASK32, zero,
-                       zero)[0]
+    """bits(seed, i) for an int64 tensor of element indices: word i mod 4
+    of the call on counter i div 4."""
+    q = index >> 2
+    zero = torch.zeros_like(q)
+    words = torch.stack(philox_4x32(seed, q & _MASK32, (q >> 32) & _MASK32,
+                                    zero, zero))
+    return words.gather(0, (index & 3)[None])[0]
 
 
 def keep_mask_plain(seed: int, shape, p: float, device) -> torch.Tensor:
@@ -108,16 +114,22 @@ def keep_mask_plain(seed: int, shape, p: float, device) -> torch.Tensor:
 
 @functools.cache
 def device_keep():
-    """The ``@triton.jit`` device function ``keep(idx, seed_lo, seed_hi,
-    thresh)``: idx an int64 block of element indices, the seed words and the
-    threshold scalar kernel arguments; returns the bool keep block."""
+    """The ``@triton.jit`` device function ``keep(offs, row_base, seed_lo,
+    seed_hi, thresh, BLOCK_S, BLOCK_C, GROUPED)``: the bool keep block of a
+    [BLOCK_S, BLOCK_C] block of elements. ``offs`` holds their int64 flat
+    indices, ``row_base`` (BLOCK_S,) the int64 flat index of each row's
+    channel 0; the seed words and the threshold are scalar kernel arguments.
+    With ``GROUPED`` (C a multiple of 4, so each row's base is too) Philox
+    runs once per four channels on a [BLOCK_S, BLOCK_C // 4] block of
+    counters, its 32-bit words carried from the row's base without int64
+    arithmetic per element, and the four words are interleaved over the
+    four channels; otherwise it runs per element on i div 4 and keeps word
+    i mod 4."""
     import triton
     import triton.language as tl
 
     @triton.jit
-    def keep(idx, seed_lo, seed_hi, thresh):
-        c0 = idx.to(tl.uint32)
-        c1 = (idx >> 32).to(tl.uint32)
+    def philox(c0, c1, seed_lo, seed_hi):
         c2 = tl.zeros_like(c0)
         c3 = tl.zeros_like(c0)
         m0 = tl.full(c0.shape, 0xD2511F53, tl.uint32)
@@ -135,6 +147,30 @@ def device_keep():
             c3 = m0 * p0
             k0 = k0 + w0
             k1 = k1 + w1
-        return c0 < thresh.to(tl.uint32)
+        return c0, c1, c2, c3
+
+    @triton.jit
+    def keep(offs, row_base, seed_lo, seed_hi, thresh,
+             BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
+             GROUPED: tl.constexpr):
+        if GROUPED:
+            qb = row_base >> 2
+            lo0 = qb.to(tl.uint32)
+            hi0 = (qb >> 32).to(tl.uint32)
+            cq = tl.arange(0, BLOCK_C // 4).to(tl.uint32)
+            lo = lo0[:, None] + cq[None, :]
+            hi = hi0[:, None] + (lo < lo0[:, None]).to(tl.uint32)
+            b0, b1, b2, b3 = philox(lo, hi, seed_lo, seed_hi)
+            # [.., g, a, b] = word 2a + b of group g
+            bits = tl.reshape(tl.join(tl.join(b0, b2), tl.join(b1, b3)),
+                              [BLOCK_S, BLOCK_C])
+        else:
+            q = offs >> 2
+            b0, b1, b2, b3 = philox(q.to(tl.uint32), (q >> 32).to(tl.uint32),
+                                    seed_lo, seed_hi)
+            w = offs & 3
+            bits = tl.where(w == 0, b0,
+                            tl.where(w == 1, b1, tl.where(w == 2, b2, b3)))
+        return bits < thresh.to(tl.uint32)
 
     return keep
