@@ -69,7 +69,23 @@ while developing and then prints no ``kernels`` or ``ok`` line):
   9. ddnm     - ``ddnm_sample`` on the flagship VDM at 32^3, f32, half-box
                 mask, 10 steps with 2 steps of time travel: finite and
                 consistent with the measurement;
- 10. sharded  - the spatially sharded (``sp``) path: the parent spawns two
+ 10. cli      - the entry points as a user runs them, in this process
+                (``vdm4cdm_torch.cli.train.main`` and ``.generate.main``),
+                for each preset at full width on GRF data with remat off
+                (as the bare steps): train 6 steps (SFM 3) with a checkpoint
+                and validation every 3, run again to 8 (SFM 4), which must
+                resume from step 6 (3) and write the last step, then the
+                CV_12_12 campaign from those checkpoints (2 sampler steps;
+                the VDM 4 reps a call, the SFM Heun): 12 finite files of
+                (12, 1, 128, 128, 128) f32. One line per model: the CLI
+                trainer's s/step (median after the first step) beside the
+                bare step's of the ``train`` / ``sfm`` phase, host ms to
+                make one batch alone, the feed wait per step, launches per
+                step of the resumed run (which validates nowhere) against
+                the bare step's, checkpoint bytes and save ms, the files.
+                Run directories go to ``chiprun_out/cli_runs/``; the
+                checkpoints and samples are deleted after their checks;
+ 11. sharded  - the spatially sharded (``sp``) path: the parent spawns two
                 ranks on cuda:0, joined over gloo (NCCL refuses two ranks
                 on one device; gloo stages the halo planes through pinned
                 host memory), each seeing exactly the shapes of a rank of a
@@ -91,12 +107,13 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 parent, which prints them. These times are those of two
                 processes sharing one card through host memory: no
                 multi-card figure;
- 11. profile  - device time by kernel and the device's idle share over UNet
+ 12. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM);
- 12. the ``kernels`` line (launches from the sfm phase's train steps, this
-     slice's path, beside ``ms``, ``bound_ms`` and ``max_abs_err`` at that
-     path's 128^3 shape, named in ``shape`` and ``padding``; the earlier
-     paths' launches as ``launches_vdm_train``, ``launches_sampler`` and
+ 13. the ``kernels`` line (``launches`` of the unsharded kernels: the whole
+     ``cli`` phase's, this slice's path, also as ``launches_cli``; ``ms``,
+     ``bound_ms`` and ``max_abs_err`` at the SFM's 128^3 batch-4 shape, named
+     in ``shape`` and ``padding``; the earlier paths' launches as
+     ``launches_sfm_train``, ``launches_vdm_train``, ``launches_sampler`` and
      ``launches_sfm_sampler``; the sharded train steps' launches on rank 0 as
      ``launches_sharded``, which is also the ``launches`` of the z-halo rows
      and of the norm kernels' CP rows), the raw nvidia-smi line, and last
@@ -117,9 +134,12 @@ import argparse
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -137,7 +157,7 @@ TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
 SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
-          "sharded", "profile")  # in the order they run
+          "cli", "sharded", "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
 # alone (the kernels phase takes them too), for a before/after table with
 # --port
@@ -1426,9 +1446,10 @@ def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed,
     return facts, (state, step, batch, gen)
 
 
-def phase_train(torch, vt, K, kernels):
+def phase_train(torch, vt, K, kernels, bare):
     """The flagship train step at 128^3, batch 2, bf16, dropout 0.1, bf16
-    first moment, EMA: one warm-up step, then timed steps."""
+    first moment, EMA: one warm-up step, then timed steps. Its s/step and
+    launches per step go to ``bare["vdm"]`` for the ``cli`` phase."""
     size = MAIN_SIZE
     held = resident_gib(torch)
     vdm = build_vdm(vt, size, "bfloat16", "cuda", 9)
@@ -1440,6 +1461,7 @@ def phase_train(torch, vt, K, kernels):
           "held_by_earlier_phases_gib": held, **facts})
     for name in UNSHARDED_KERNELS:
         kernels[name]["launches_vdm_train"] = facts["launches"][name]
+    bare["vdm"] = {k: facts[k] for k in ("s_per_step", "launches_per_step")}
     return trainer
 
 
@@ -1482,10 +1504,11 @@ def phase_main(torch, vt, K, kernels):
     return vdm, s, v
 
 
-def phase_sfm(torch, vt, K, kernels):
-    """This slice's path at full width: train steps of ``trainSFM3D128_c_c``
-    at 128^3, batch 4, bf16 without remat, one step's peak memory with the
-    preset's remat, then Heun sampler steps at batch 1."""
+def phase_sfm(torch, vt, K, kernels, bare):
+    """Train steps of ``trainSFM3D128_c_c`` at 128^3, batch 4, bf16 without
+    remat (their s/step and launches per step go to ``bare["sfm"]``), one
+    step's peak memory with the preset's remat, then Heun sampler steps at
+    batch 1."""
     size = MAIN_SIZE
     trainer = peak_no_remat = None
     for remat in (False, True):
@@ -1508,7 +1531,9 @@ def phase_sfm(torch, vt, K, kernels):
             peak_no_remat = facts["peak_mem_gib"]
             trainer = run
             for name in UNSHARDED_KERNELS:
-                kernels[name]["launches"] = facts["launches"][name]
+                kernels[name]["launches_sfm_train"] = facts["launches"][name]
+            bare["sfm"] = {k: facts[k]
+                           for k in ("s_per_step", "launches_per_step")}
         emit(line)
         del sfm, batch, run
 
@@ -1583,6 +1608,174 @@ def phase_ddnm(torch, vt, K):
                 and counts["conv3d_k3s1_fwd"] == 59 * forwards,
                 "ddnm check failed", line)
     emit(line)
+
+
+# --------------------------------------------------------------- cli phase
+
+# the entry points as a user runs them: (family, preset, steps of the first
+# run, of the resumed run, checkpoint and validation interval, generation
+# arguments). The first run validates and saves every third step; the
+# resumed run's steps (7 and 8, or 4) validate nowhere, so its launches
+# are the train steps' alone. remat is off, as in the bare steps of the
+# ``train`` and ``sfm`` phases, whose launches per step the CLI's must equal.
+CLI_RUNS = (
+    ("vdm", VDM_PRESET, 6, 8, 3, ["--reps-per-batch", "4"]),
+    ("sfm", SFM_PRESET, 3, 4, 3, ["--sfm-method", "heun"]),
+)
+CLI_CAMPAIGN, CLI_SAMPLING_STEPS, CLI_FILES = "CV_12_12", 2, 12
+
+
+def run_cli(main, argv, log):
+    """``main(argv)`` in this process, its printed lines appended to the
+    file ``log``; returns (exit code, those lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    with open(log, "a") as fh:
+        fh.write(f"$ {' '.join(map(str, argv))}\n{buf.getvalue()}")
+    return rc, buf.getvalue().splitlines()
+
+
+def read_metrics(path):
+    import csv
+
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def phase_cli(torch, vt, K, kernels, bare):
+    """Train, resume and generate through ``vdm4cdm_torch.cli.train`` and
+    ``.generate`` in this process, at full width on GRF data, for the VDM
+    (128^3, batch 2) and the SFM (batch 4). The checkpoints and samples are
+    deleted after their checks (they take gigabytes); ``metrics.csv`` and
+    the CLI's printed lines stay under ``chiprun_out/cli_runs/``."""
+    import shutil
+
+    from vdm4cdm_torch.cli import generate, train
+
+    root = OUT_DIR / "cli_runs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    total = {name: 0 for name in UNSHARDED_KERNELS}
+    for family, preset, first, last, every, gen_args in CLI_RUNS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        held = resident_gib(torch)
+        cfg = vt.preset(preset, **{"data.kind": "grf"})
+        dm = vt.build_datamodule(cfg)
+        t_batch = time.perf_counter()
+        next(dm.train_batches(1))
+        host_batch_ms = (time.perf_counter() - t_batch) * 1e3
+        log = root / f"{family}.log"
+        sets = ["data.kind=grf", "model.remat=False", f"run.out_dir={root}",
+                f"run.ckpt_every_steps={every}",
+                f"run.val_check_interval={every}", "run.n_val_batches=1",
+                "run.log_every_steps=1"]
+        counts = {}
+        for what, steps in (("train", first), ("resume", last)):
+            K.reset_launch_counts()
+            rc, out = run_cli(train.main, ["--preset", preset, "--set", *sets,
+                                           f"run.max_steps={steps}"], log)
+            torch.cuda.synchronize()
+            counts[what] = K.launch_counts()
+            if rc != 0:
+                raise AssertionError(f"cli.train {what} of {preset}: rc {rc}")
+        resumed = [int(ln.rsplit(" ", 1)[1]) for ln in out
+                   if ln.startswith("[trainer] resumed from step")]
+        run_dir = root / preset
+        ckpt_dir = run_dir / "checkpoints"
+        steps_saved = sorted(int(p.name) for p in ckpt_dir.iterdir())
+        rows = read_metrics(run_dir / "metrics.csv")
+        train_rows = [r for r in rows if r["loss"]]
+        first_rows = [r for r in train_rows if int(r["step"]) <= first]
+        later = [float(r["step_s"]) for r in first_rows[1:]]
+        waits = [float(r["feed_wait_s"]) for r in first_rows[1:]]
+        resume_rows = [r for r in train_rows if int(r["step"]) > first]
+        saves = [{"step": int(r["step"]), "bytes": int(float(r["ckpt_bytes"])),
+                  "ms": float(r["ckpt_save_s"]) * 1e3}
+                 for r in rows if r["ckpt_bytes"]]
+
+        gen_dir = root / f"{family}_samples"
+        K.reset_launch_counts()
+        t_gen = time.perf_counter()
+        rc, _ = run_cli(generate.main, [
+            preset, str(gen_dir), CLI_CAMPAIGN, "--ckpt-dir", str(ckpt_dir),
+            "--n-sampling-steps", str(CLI_SAMPLING_STEPS), *gen_args,
+            "--set", "data.kind=grf", "model.remat=False"], log)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t_gen
+        counts["generate"] = K.launch_counts()
+        files, finite, max_abs = {}, True, 0.0
+        for path in sorted(gen_dir.iterdir()):
+            a = np.load(path)
+            files[path.name] = [list(a.shape), str(a.dtype)]
+            finite = finite and bool(np.isfinite(a).all())
+            max_abs = max(max_abs, float(np.abs(a).max()))
+        for c in counts.values():
+            for name in total:
+                total[name] += c[name]
+        shutil.rmtree(gen_dir)
+        shutil.rmtree(ckpt_dir)
+
+        n_resumed = last - first
+        per_step = {k: c / n_resumed for k, c in counts["resume"].items()}
+        want = bare.get(family, {}).get("launches_per_step")
+        size = MAIN_SIZE
+        line = {"phase": "cli", "model": family, "preset": preset,
+                "size": size, "batch": cfg.data.batch_size,
+                # the config's rule (models/cunet.py via build_model): GRF
+                # data is periodic, so both models pad circularly here
+                "padding": ("circular" if cfg.data.cropsize == 256
+                            or cfg.data.kind == "grf" else "zeros"),
+                "dtype": cfg.model.compute_dtype, "remat": False,
+                "held_by_earlier_phases_gib": held,
+                # the median of the steps after the first, and the mean:
+                # validation and a checkpoint (about 2 s) let the feed
+                # thread run up to three batches ahead, so the median of a
+                # short run can be the bare step's while the feed sets the
+                # pace
+                "cli_s_per_step": statistics.median(later),
+                "cli_s_per_step_mean": statistics.fmean(later),
+                "cli_s_per_step_all": [float(r["step_s"]) for r in train_rows],
+                "bare_s_per_step": bare.get(family, {}).get("s_per_step"),
+                "host_batch_ms": host_batch_ms,
+                "feed_wait_ms_per_step": 1e3 * statistics.median(waits),
+                "feed_wait_ms_per_step_mean": 1e3 * statistics.fmean(waits),
+                "feed_wait_ms_all": [1e3 * float(r["feed_wait_s"])
+                                     for r in train_rows],
+                "resume_first_step_s": float(resume_rows[0]["step_s"]),
+                "launches_per_step": per_step,
+                "bare_launches_per_step": want,
+                "launches": counts,
+                "resumed_from": resumed[0] if resumed else None,
+                "checkpoint_steps": steps_saved, "checkpoints": saves,
+                "campaign": CLI_CAMPAIGN,
+                "sampling_steps": CLI_SAMPLING_STEPS,
+                "generate_s": gen_s, "files": files,
+                "max_abs": max_abs, "finite": finite,
+                "seconds": time.perf_counter() - t0}
+        emit(line)
+        fail_unless(
+            line["resumed_from"] == first
+            and steps_saved == sorted({every, first, last})
+            and [int(r["step"]) for r in train_rows]
+            == list(range(1, last + 1)),
+            "the CLI did not train, save and resume as asked", line)
+        fail_unless(want is not None and all(
+            per_step[k] == want[k] for k in UNSHARDED_KERNELS),
+            "the CLI's launches per step differ from the bare step's", line)
+        fail_unless(finite and len(files) == CLI_FILES and all(
+            shape == [12, 1, size, size, size] and dtype == "float32"
+            for shape, dtype in files.values())
+            and min(counts["generate"][k] for k in FORWARD_KERNELS) > 0,
+            "the campaign files are not 12 finite (12, 1, S, S, S) fields",
+            line)
+    for name in UNSHARDED_KERNELS:
+        kernels[name]["launches_cli"] = total[name]
+        kernels[name]["launches"] = total[name]
 
 
 # ----------------------------------------------------------- sharded phase
@@ -2226,14 +2419,17 @@ def main() -> int:
         phase_grads(torch, vt, K)
     heads = heads or {k: {} for k in UNSHARDED_KERNELS}
     sampler = trainer = sfm_trainer = None
+    bare = {}  # the bare train steps' s/step and launches, by family
     if "main" in phases:
         sampler = phase_main(torch, vt, K, heads)
     if "train" in phases:
-        trainer = phase_train(torch, vt, K, heads)
+        trainer = phase_train(torch, vt, K, heads, bare)
     if "sfm" in phases:
-        sfm_trainer = phase_sfm(torch, vt, K, heads)
+        sfm_trainer = phase_sfm(torch, vt, K, heads, bare)
     if "ddnm" in phases:
         phase_ddnm(torch, vt, K)
+    if "cli" in phases:
+        phase_cli(torch, vt, K, heads, bare)
     if "sharded" in phases:
         phase_sharded(torch, heads)
     # the profiler runs last, so that tracing cannot touch a timed phase
@@ -2261,6 +2457,8 @@ def main() -> int:
          "replaces": META[name][2], "shape": h["shape"],
          "dtype": h["dtype"], "padding": h.get("mode"),
          "launches": h["launches"],
+         "launches_cli": h.get("launches_cli"),
+         "launches_sfm_train": h.get("launches_sfm_train"),
          "launches_vdm_train": h.get("launches_vdm_train"),
          "launches_sampler": h.get("launches_sampler"),
          "launches_sfm_sampler": h.get("launches_sfm_sampler"),

@@ -8,8 +8,8 @@ Conditioning nomenclature follows the reference script names ``{s}_{v}``:
   v in {uc, c}: cosmological parameter vector absent/present
 e.g. "c_c" = field-conditioned + parameter-conditioned (the flagship 3D task).
 
-``build_model`` makes the port's :class:`VDM` or :class:`SFM` from a config.
-The data side (``build_datamodule``) comes with the data modules.
+``build_model`` makes the port's :class:`VDM` or :class:`SFM` from a config;
+``build_datamodule`` its GRF or CAMELS data module.
 """
 
 from __future__ import annotations
@@ -142,9 +142,11 @@ class ExperimentConfig:
             return cls.from_dict(yaml.safe_load(f))
 
 
-def build_model(cfg: ExperimentConfig, device=None, ctx=None):
+def build_model(cfg: ExperimentConfig, device=None, ctx=None,
+                generator=None):
     """ExperimentConfig -> VDM or SFM with freshly initialized parameters on
-    ``device`` (None = the CUDA card). ``ctx`` (a
+    ``device`` (None = the CUDA card), drawn from ``generator`` (a CPU
+    ``torch.Generator``; None = torch's global one). ``ctx`` (a
     :class:`~vdm4cdm_torch.parallel.halo.ShardCtx` of this rank, None =
     unsharded) splits the UNet over ``cfg.parallel``'s mesh, whose sizes it
     must match; the model then works on this rank's slab."""
@@ -185,9 +187,60 @@ def build_model(cfg: ExperimentConfig, device=None, ctx=None):
                            else "zeros"),
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         device=device,
+        generator=generator,
         ctx=ctx,
     )
     if m.family == "vdm":
         return VDM(net, make_schedule(m.noise_schedule, m.gamma_min,
                                       m.gamma_max, device=device))
     return SFM(net, sigma=m.sfm_sigma)
+
+
+def build_datamodule(cfg: ExperimentConfig, stage: str = "fit"):
+    """The config's data module: GRF (synthetic) or CAMELS from the
+    registry, for ``stage`` "fit" or "test". A CAMELS module serves this
+    process's block of each batch when ``torch.distributed`` is
+    initialized."""
+    d, m = cfg.data, cfg.model
+    if d.kind == "grf":
+        from .data.grf import GRFDataModule
+
+        return GRFDataModule(
+            size=d.cropsize,
+            ndim=m.ndim,
+            batch_size=d.batch_size,
+            n_conditioning_values=d.conditioning_values,
+            mode=m.family,
+            slope=d.grf_slope,
+            seed=cfg.run.seed,
+        )
+    from .data.camels import get_dataset, sfm_return_func, vdm_cc_return_func
+
+    if d.in_field:
+        channel_names = [d.in_field, d.out_field]
+        return_func = sfm_return_func if m.family == "sfm" else vdm_cc_return_func
+    else:
+        channel_names = [d.out_field]
+        return_func = None  # default: unconditional x
+    from .parallel.shard import process_rank
+
+    index, count = process_rank()
+    return get_dataset(
+        registry_dir=d.registry_dir,
+        dataset_name=d.dataset_name,
+        suite_name=d.suite_name,
+        set_name=d.set_name,
+        z_name=d.z_name,
+        channel_names=channel_names,
+        return_func=return_func,
+        stage=stage,
+        batch_size=d.batch_size,
+        cropsize=d.cropsize,
+        ndim=m.ndim,
+        num_workers=d.num_workers,
+        mmap=d.mmap,
+        data_root=d.data_root,
+        seed=cfg.run.seed,
+        process_index=index,
+        process_count=count,
+    )

@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.kernels.philox import mix_seed
+from ..utils.rng import seeded_generator
 from .halo import ShardCtx, all_gather_spatial, all_reduce_
 
 
@@ -62,6 +63,13 @@ def make_mesh(n_data: int = 1, n_sp: int = 1) -> Mesh:
             if rank in ranks:
                 data_group, data_ranks = group, ranks
     return Mesh(n_data, n_sp, sp_group, sp_ranks, data_group, data_ranks)
+
+
+def process_rank() -> Tuple[int, int]:
+    """(rank, world size) of the ``torch.distributed`` job, else (0, 1)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def make_shard_ctx(mesh: Mesh) -> ShardCtx:
@@ -107,14 +115,6 @@ def mean_over_mesh_(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
         all_reduce_(t, ctx, dist.group.WORLD)
         t.div_(ctx.world_size)
     return t
-
-
-def seeded_generator(device, seed: int, *indices: int) -> torch.Generator:
-    """A generator on ``device`` seeded on the host from ``seed`` mixed with
-    ``indices`` (JAX's ``fold_in``): nothing is read back from the device."""
-    for i in indices:
-        seed = mix_seed(seed, i)
-    return torch.Generator(device=device).manual_seed(seed & (2 ** 63 - 1))
 
 
 def rank_generator(generator: torch.Generator, *indices: int
