@@ -84,8 +84,24 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 step of the resumed run (which validates nowhere) against
                 the bare step's, checkpoint bytes and save ms, the files.
                 Run directories go to ``chiprun_out/cli_runs/``; the
-                checkpoints and samples are deleted after their checks;
- 11. sharded  - the spatially sharded (``sp``) path: the parent spawns two
+                checkpoints and samples are deleted after their checks.
+                Per model also ``panel_data`` of the CLI's
+                validation-figure hook on the card from the checkpoint (2
+                sampler steps; the card's host has no matplotlib, so the
+                trainer runs without the hook), and for the VDM
+                ``cli.calc_ss`` of its 128^3 campaign (the scattering-
+                transform branch) with one sample's ``get_stats`` on the
+                card against the CPU (within 1e-4, log-PDF counts equal);
+ 11. blessed  - the repository's trained model (``VDM_GRF_c_c_32``, step
+                20000, converted to the port's format and named in
+                ``configs/models_torch.yaml``): eps_hat on the card against
+                the CPU path (one test batch, f32), ``cli.generate`` of its
+                CV_12_12 campaign from the name alone (100 steps, 12 reps
+                a call), the acceptance gate's statistics on boxes 0 and 1
+                (4 reps each) and DDNM (50 steps, l = 3) beside their
+                thresholds and the JAX run's recorded values, then
+                ``cli.calc_ss``; any threshold failed fails the run;
+ 12. sharded  - the spatially sharded (``sp``) path: the parent spawns two
                 ranks on cuda:0, joined over gloo (NCCL refuses two ranks
                 on one device; gloo stages the halo planes through pinned
                 host memory), each seeing exactly the shapes of a rank of a
@@ -107,10 +123,14 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 parent, which prints them. These times are those of two
                 processes sharing one card through host memory: no
                 multi-card figure;
- 12. profile  - device time by kernel and the device's idle share over UNet
-                forwards and over a train step at 128^3 (VDM and SFM);
- 13. the ``kernels`` line (``launches`` of the unsharded kernels: the whole
-     ``cli`` phase's, this slice's path, also as ``launches_cli``; ``ms``,
+ 13. profile  - device time by kernel and the device's idle share over UNet
+                forwards and over a train step at 128^3 (VDM and SFM), and
+                over the blessed model's forward at (12, 32^3) f32 with its
+                3x3x3 convs' GFLOP and rate (``blessed_conv_rate``);
+ 14. the ``kernels`` line (``launches``: of the four forward kernels, the
+     ``blessed`` phase's, this slice's path, also as ``launches_blessed``;
+     of the training kernels, which that path does not run, the whole
+     ``cli`` phase's, also as ``launches_cli``; ``ms``,
      ``bound_ms`` and ``max_abs_err`` at the SFM's 128^3 batch-4 shape, named
      in ``shape`` and ``padding``; the earlier paths' launches as
      ``launches_sfm_train``, ``launches_vdm_train``, ``launches_sampler`` and
@@ -157,7 +177,7 @@ TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
 SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
-          "cli", "sharded", "profile")  # in the order they run
+          "cli", "blessed", "sharded", "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
 # alone (the kernels phase takes them too), for a before/after table with
 # --port
@@ -1646,6 +1666,108 @@ def read_metrics(path):
         return list(csv.DictReader(fh))
 
 
+FIGURE_STEPS = 2  # the validation figure's sampler steps in the cli phase
+STATS_TOL = 1e-4  # get_stats on the card against the CPU, each key
+# relative to its own max |CPU value|
+
+
+def figure_panel(torch, vt, K, cfg, dm, ckpt_dir):
+    """``panel_data`` of the CLI's validation-figure hook on the card (the
+    card's host has no matplotlib, so the CLI trainer runs without it):
+    the checkpoint's weights, the first validation batch, FIGURE_STEPS
+    sampler steps. Fails unless the panel is whole and finite."""
+    from vdm4cdm_torch.cli._common import make_validation_figure_fn
+    from vdm4cdm_torch.train.checkpoint import load_params
+
+    cfg.model.remat = False
+    cfg.run.n_figure_sampling_steps = FIGURE_STEPS
+    model = vt.build_model(cfg, device="cuda").eval()
+    load_params(str(ckpt_dir), model)
+    draw = make_validation_figure_fn(cfg, model, dm)
+    batch = {k: (None if v is None else
+                 [torch.from_numpy(a).cuda() for a in v]
+                 if isinstance(v, list) else torch.from_numpy(v).cuda())
+             for k, v in next(iter(dm.val_dataloader())).items()}
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    panel = draw.panel_data(dict(model.named_parameters()), batch,
+                            torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0,
+           "sampling_steps": FIGURE_STEPS,
+           "images": {k: list(v.shape) for k, v in panel["images"].items()},
+           "curves": {k: len(panel[k]) for k in ("hist", "pk", "cc")},
+           "finite": all(np.isfinite(np.asarray(a, np.float64)).all()
+                         for k in ("pk", "cc") for c in panel[k]
+                         for a in c[1:]),
+           "launches": K.launch_counts()}
+    fail_unless(out["finite"] and len(out["images"]) == 3
+                and out["curves"] == {"hist": 3, "pk": 3, "cc": 1}
+                and min(out["launches"][k] for k in FORWARD_KERNELS) > 0,
+                "the validation-figure panel is not whole", out)
+    return out
+
+
+def cli_calc_ss(torch, K, data_dir):
+    """``cli.calc_ss`` of the VDM's 128^3 CV_12_12 campaign on the card
+    (the scattering-transform branch), timed per sample; then one sample's
+    ``get_stats`` on the card against the CPU. The GRF preset's fields are
+    unnormalized by the identity: zero-mean, below the log-PDF bins, and
+    their P(k) over their sum is a ratio to round-off; the card-CPU check
+    standardizes the sample and takes it through 10^(0.3 y + 11) on the
+    host first, a positive field whose every statistic is well
+    conditioned."""
+    import pickle
+
+    from vdm4cdm_torch.cli import calc_ss
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, _ = run_cli(calc_ss.main, [
+        VDM_PRESET, "--data-dir", str(data_dir), "--set", "data.kind=grf",
+        "model.remat=False"], data_dir.parent / "calc_ss.log")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = K.launch_counts()
+    with open(data_dir / "summary.pkl", "rb") as fh:
+        stats = pickle.load(fh)[CLI_CAMPAIGN]["stats"]
+    samples = {k: v for k, v in stats.items() if "_GT_" not in k}
+    one = np.load(data_dir / CLI_CAMPAIGN / "gen_0.npy")[:1]
+    one = (one - one.mean()) / one.std()  # a few steps' samples run large
+    field = (10.0 ** (one * 0.3 + 11.0)).astype(np.float32)
+    got, ms, rwst_ms = time_stats(torch, calc_ss,
+                                  torch.from_numpy(field).cuda())
+    got, ms, rwst_ms = time_stats(torch, calc_ss,  # warm: the second call
+                                  torch.from_numpy(field).cuda())
+    ref = calc_ss.get_stats(torch.from_numpy(field))
+    errs, counts_equal = {}, True
+    for k, want in ref.items():
+        g, w = np.asarray(got[k], np.float64), np.asarray(want, np.float64)
+        if k.endswith("logpdf"):
+            counts_equal = counts_equal and bool(np.array_equal(g, w))
+        else:  # a CPU value of all zeros makes the error inf: a failure
+            errs[k] = float(np.abs(g - w).max() / np.abs(w).max())
+    out = {"seconds": seconds, "samples": len(stats),
+           "ms_per_sample": seconds * 1e3 / len(stats),
+           "get_stats_ms_128": ms, "rwst_ms_128": rwst_ms,
+           "get_stats_ms_128_without_rwst": ms - rwst_ms,
+           "rwst": sorted(k for k in samples["Mcdm_0_0"] if "rwst" in k),
+           "finite": all(np.isfinite(np.asarray(v, np.float64)).all()
+                         for st in samples.values() for v in st.values()),
+           "card_vs_cpu_rel_err": errs, "tol": STATS_TOL,
+           "logpdf_counts_equal": counts_equal,
+           "logpdf_counted": float(np.asarray(ref["3d_logpdf"]).sum()),
+           "launches": launches}
+    fail_unless(rc == 0 and len(stats) == 12 + 144 and out["finite"]
+                and out["rwst"] == ["2d_half_rwst", "2d_quarter_rwst"]
+                and max(errs.values()) <= STATS_TOL and counts_equal
+                and out["logpdf_counted"] > 0,
+                "calc_ss of the 128^3 campaign failed", out)
+    return out
+
+
 def phase_cli(torch, vt, K, kernels, bare):
     """Train, resume and generate through ``vdm4cdm_torch.cli.train`` and
     ``.generate`` in this process, at full width on GRF data, for the VDM
@@ -1673,7 +1795,8 @@ def phase_cli(torch, vt, K, kernels, bare):
         sets = ["data.kind=grf", "model.remat=False", f"run.out_dir={root}",
                 f"run.ckpt_every_steps={every}",
                 f"run.val_check_interval={every}", "run.n_val_batches=1",
-                "run.log_every_steps=1"]
+                "run.log_every_steps=1",
+                f"run.n_figure_sampling_steps={FIGURE_STEPS}"]
         counts = {}
         for what, steps in (("train", first), ("resume", last)):
             K.reset_launch_counts()
@@ -1698,7 +1821,10 @@ def phase_cli(torch, vt, K, kernels, bare):
                   "ms": float(r["ckpt_save_s"]) * 1e3}
                  for r in rows if r["ckpt_bytes"]]
 
-        gen_dir = root / f"{family}_samples"
+        figure = figure_panel(torch, vt, K, cfg, dm, ckpt_dir)
+        counts["figure"] = figure.pop("launches")
+
+        gen_dir = root / f"{family}_samples" / CLI_CAMPAIGN
         K.reset_launch_counts()
         t_gen = time.perf_counter()
         rc, _ = run_cli(generate.main, [
@@ -1714,10 +1840,14 @@ def phase_cli(torch, vt, K, kernels, bare):
             files[path.name] = [list(a.shape), str(a.dtype)]
             finite = finite and bool(np.isfinite(a).all())
             max_abs = max(max_abs, float(np.abs(a).max()))
+        summary = None
+        if family == "vdm":  # calc_ss reads VDM batches (x, conditioning)
+            summary = cli_calc_ss(torch, K, gen_dir.parent)
+            counts["calc_ss"] = summary.pop("launches")
         for c in counts.values():
             for name in total:
                 total[name] += c[name]
-        shutil.rmtree(gen_dir)
+        shutil.rmtree(gen_dir.parent)
         shutil.rmtree(ckpt_dir)
 
         n_resumed = last - first
@@ -1756,6 +1886,7 @@ def phase_cli(torch, vt, K, kernels, bare):
                 "sampling_steps": CLI_SAMPLING_STEPS,
                 "generate_s": gen_s, "files": files,
                 "max_abs": max_abs, "finite": finite,
+                "figure_panel": figure, "calc_ss": summary,
                 "seconds": time.perf_counter() - t0}
         emit(line)
         fail_unless(
@@ -1776,6 +1907,226 @@ def phase_cli(torch, vt, K, kernels, bare):
     for name in UNSHARDED_KERNELS:
         kernels[name]["launches_cli"] = total[name]
         kernels[name]["launches"] = total[name]
+
+
+# ----------------------------------------------------------- blessed phase
+
+# the repository's trained model, converted to the port's format and named
+# in configs/models_torch.yaml; the acceptance gate's statistics and
+# thresholds are vdm4cdm_torch/evals/acceptance.py's, and the JAX run's
+# recorded values (tests/test_acceptance.py) stand beside them
+BLESSED = "VDM_GRF_c_c_32"
+BLESSED_CAMPAIGN, BLESSED_STEPS, BLESSED_REPS = "CV_12_12", 100, 12
+GATE_BOXES, GATE_REPS = 2, 4
+GATE_JAX_RECORDED = {"pk_ratio": "[0.79, 1.29]", "overlap": "0.38",
+                     "low_k_r": "min 0.967", "spread_over_std": "not recorded",
+                     "ddnm_consistency": "not recorded", "ddnm_hole_r": "0.93"}
+DDNM_GATE_STEPS, DDNM_GATE_L = 50, 3
+
+
+def time_stats(torch, calc_ss, field):
+    """ms of ``get_stats`` on one field on the card, and of the scattering
+    transforms inside it (0 where the projections are not 128 wide); the
+    stats themselves."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = calc_ss.get_stats(field)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    rwst = 0.0
+    if field.shape[-1] == calc_ss.RWST_SIZE:
+        for depth in (field.shape[2] // 2, field.shape[2] // 4):
+            f2d = field[:, :, :depth].sum(dim=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calc_ss._log_rwst(f2d)
+            torch.cuda.synchronize()
+            rwst += (time.perf_counter() - t0) * 1e3
+    return stats, total, rwst
+
+
+def phase_blessed(torch, vt, K, kernels):
+    """The blessed chain on the card: eps_hat of the converted model
+    against the CPU path, ``cli.generate VDM_GRF_c_c_32`` through the
+    port's registry (CV_12_12, 100 steps, 12 reps a call), the acceptance
+    gate's statistics and DDNM, then ``cli.calc_ss``. Fails on any
+    threshold. Run from the repository root (the registry's paths are
+    relative to it)."""
+    import os
+    import pickle
+    import shutil
+
+    from vdm4cdm_torch.cli import calc_ss, generate
+    from vdm4cdm_torch.cli._common import read_registry
+    from vdm4cdm_torch.evals.acceptance import (THRESHOLDS, ddnm_statistics,
+                                                gate_passes, gate_statistics)
+    from vdm4cdm_torch.train.checkpoint import load_params
+
+    t_phase = time.perf_counter()
+    os.chdir(ROOT)
+    entry = read_registry("configs/models_torch.yaml")[BLESSED]
+    cfg = vt.preset(entry["preset"])
+    counts = {}
+
+    # 1. eps_hat on the card against the CPU path, on one test batch
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = vt.build_model(cfg, device=dev).eval()
+        load_params(entry["ckpt_dir"], models[dev], step=entry["ckpt_step"])
+    batch = next(iter(vt.build_datamodule(cfg, stage="test")
+                      .test_dataloader()))
+    s = torch.from_numpy(batch["conditioning"])
+    v = torch.from_numpy(batch["conditioning_values"][0])
+    gen = torch.Generator().manual_seed(61)
+    z = torch.randn(s.shape, generator=gen)
+    t = torch.linspace(0.05, 0.95, s.shape[0])
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        got = models["cuda"].eps_hat(z.cuda(), t.cuda(), s.cuda(),
+                                     [v.cuda()]).cpu()
+    torch.cuda.synchronize()
+    counts["eps_hat"] = K.launch_counts()
+    with torch.inference_mode():
+        ref = models["cpu"].eps_hat(z, t, s, [v])
+    abs_err, err = rel_err(got, ref)
+    line = {"phase": "blessed", "what": "eps_hat", "model": BLESSED,
+            "step": entry["ckpt_step"], "batch": list(z.shape),
+            "chs": list(cfg.model.chs), "dtype": cfg.model.compute_dtype,
+            "max_abs_ref": ref.abs().max().item(), "max_abs_err": abs_err,
+            "rel_err": err, "tol": PARITY_TOL,
+            "launches": counts["eps_hat"]}
+    emit(line)
+    fail_unless(bool(torch.isfinite(got).all()) and err <= PARITY_TOL,
+                "blessed eps_hat parity failed", line)
+    vdm = models["cuda"]
+    del models
+
+    # 2. the campaign through the entry point, from the registry
+    root = OUT_DIR / "blessed_run"
+    shutil.rmtree(root, ignore_errors=True)
+    camp = root / BLESSED_CAMPAIGN
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, _ = run_cli(generate.main, [
+        BLESSED, str(camp), BLESSED_CAMPAIGN, "--n-sampling-steps",
+        str(BLESSED_STEPS), "--reps-per-batch", str(BLESSED_REPS)],
+        OUT_DIR / "blessed_generate.log")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts["generate"] = K.launch_counts()
+    files = sorted(camp.iterdir())
+    fields = [np.load(p) for p in files]
+    n_fields = sum(len(a) for a in fields)
+    line = {"phase": "blessed", "what": "generate", "campaign":
+            BLESSED_CAMPAIGN, "sampling_steps": BLESSED_STEPS,
+            "reps_per_batch": BLESSED_REPS, "files": len(files),
+            "fields": n_fields, "seconds": gen_s,
+            "s_per_field": gen_s / n_fields,
+            "s_per_100_step_field": gen_s / n_fields * 100 / BLESSED_STEPS,
+            "unet_forwards": n_fields // BLESSED_REPS * BLESSED_STEPS,
+            "finite": all(bool(np.isfinite(a).all()) for a in fields),
+            "launches": counts["generate"],
+            "launches_per_forward": {
+                k: c / (n_fields // BLESSED_REPS * BLESSED_STEPS)
+                for k, c in counts["generate"].items()}}
+    emit(line)
+    fail_unless(rc == 0 and len(files) == 12 and line["finite"] and all(
+        a.shape == (12, 1, 32, 32, 32) for a in fields)
+        and min(counts["generate"][k] for k in FORWARD_KERNELS) > 0,
+        "the blessed campaign is not 12 finite (12, 1, 32^3) files", line)
+
+    # 3. the gate: boxes 0 and 1 of the campaign's test loader
+    gen_cfg = vt.preset(BLESSED)
+    gen_cfg.data.set_name, gen_cfg.data.batch_size = "CV", 1
+    boxes = []
+    for i, b in enumerate(vt.build_datamodule(gen_cfg, stage="test")
+                          .test_dataloader()):
+        if i >= GATE_BOXES:
+            break
+        boxes.append(b)
+    gt = np.concatenate([np.moveaxis(b["x"], -1, 1) for b in boxes])
+    samples = np.concatenate([np.load(camp / f"gen_{i}.npy")[:GATE_REPS]
+                              for i in range(GATE_BOXES)])
+    stats = gate_statistics(torch.from_numpy(samples).cuda(),
+                            torch.from_numpy(gt.astype(np.float32)).cuda(),
+                            GATE_REPS)
+
+    b0 = boxes[0]
+    x = torch.from_numpy(b0["x"]).cuda()
+    mask = torch.zeros_like(x)
+    mask[:, : x.shape[1] // 2] = 1.0
+    A = lambda zz: zz * mask  # noqa: E731
+    y = A(x)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    x_hat = vt.ddnm_sample(
+        vdm, y, A, A, n_sampling_steps=DDNM_GATE_STEPS, l=DDNM_GATE_L,
+        s_conditioning=torch.from_numpy(b0["conditioning"]).cuda(),
+        v_conditionings=[torch.from_numpy(b0["conditioning_values"][0])
+                         .cuda()],
+        generator=torch.Generator(device="cuda").manual_seed(123))
+    torch.cuda.synchronize()
+    ddnm_s = time.perf_counter() - t0
+    counts["ddnm"] = K.launch_counts()
+    stats.update(ddnm_statistics(x_hat, x, mask))
+    ok = gate_passes(stats)
+    stats["pk_ratio"] = [float(stats["pk_ratio"].min()),
+                         float(stats["pk_ratio"].max())]
+    stats["low_k_r"] = [float(r) for r in stats["low_k_r"]]
+    line = {"phase": "blessed", "what": "gate", "boxes": GATE_BOXES,
+            "reps": GATE_REPS,
+            "gate": {k: {"measured": stats[k], "threshold": THRESHOLDS[k],
+                         "jax_recorded": GATE_JAX_RECORDED[k], "pass": ok[k]}
+                     for k in THRESHOLDS},
+            "ddnm_steps": DDNM_GATE_STEPS, "ddnm_l": DDNM_GATE_L,
+            "ddnm_s": ddnm_s, "launches_ddnm": counts["ddnm"]}
+    emit(line)
+    fail_unless(set(ok) == set(THRESHOLDS) and all(ok.values()),
+                "the blessed model fails the gate", line)
+
+    # 4. the summary statistics of the campaign
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, _ = run_cli(calc_ss.main, [BLESSED, "--data-dir", str(root)],
+                    OUT_DIR / "blessed_calc_ss.log")
+    torch.cuda.synchronize()
+    ss_s = time.perf_counter() - t0
+    with open(root / "summary.pkl", "rb") as fh:
+        summary = pickle.load(fh)[BLESSED_CAMPAIGN]
+    n_stats = len(summary["stats"])
+    one, one_ms, _ = time_stats(torch, calc_ss,
+                                torch.from_numpy(fields[0][:1]).cuda())
+    # the GRF ground truth has zero mean: its P(k) over its sum is a ratio
+    # to round-off (inf where the f32 sum is 0), in the JAX CLI as here,
+    # so finiteness is asked of the samples' statistics
+    line = {"phase": "blessed", "what": "calc_ss", "seconds": ss_s,
+            "samples": n_stats, "ms_per_sample": ss_s * 1e3 / n_stats,
+            "get_stats_ms_32": one_ms, "keys": sorted(one),
+            "finite": all(np.isfinite(np.asarray(val, np.float64)).all()
+                          for name, st in summary["stats"].items()
+                          if "_GT_" not in name for val in st.values())}
+    emit(line)
+    fail_unless(rc == 0 and n_stats == 12 + 144 and line["finite"],
+                "calc_ss of the blessed campaign failed", line)
+    shutil.rmtree(root)
+
+    total = {name: sum(c.get(name, 0) for c in counts.values())
+             for name in UNSHARDED_KERNELS}
+    emit({"phase": "blessed", "what": "launches", "by_step": counts,
+          "total": total, "seconds": time.perf_counter() - t_phase})
+    fail_unless(min(total[k] for k in FORWARD_KERNELS) > 0,
+                "the blessed chain did not launch every forward kernel",
+                {"total": total})
+    for name in UNSHARDED_KERNELS:
+        kernels[name]["launches_blessed"] = total[name]
+        if name in FORWARD_KERNELS:  # this slice's path runs these four
+            kernels[name]["launches"] = total[name]
+    # the sampler's forward at the campaign's batch, for the profile phase
+    reps = BLESSED_REPS
+    return vdm, s[:1].expand(reps, -1, -1, -1, -1).cuda(), v[:1].expand(
+        reps, -1).cuda()
 
 
 # ----------------------------------------------------------- sharded phase
@@ -2213,15 +2564,17 @@ def _category(name: str) -> str:
     return "glue (copies, pads, casts, small elementwise)"
 
 
-def phase_profile(torch, forward, tag="forward"):
-    """Device time by kernel over two UNet forwards at 128^3, batch 1
-    (``forward(z, t)``, after a profiled warm-up forward) and the device's
-    idle share against an unprofiled forward's wall time."""
+def phase_profile(torch, forward, tag="forward",
+                  shape=(1, MAIN_SIZE, MAIN_SIZE, MAIN_SIZE, 1)):
+    """Device time by kernel over two UNet forwards on z of ``shape``
+    (default 128^3, batch 1; ``forward(z, t)``, after a profiled warm-up
+    forward) and the device's idle share against an unprofiled forward's
+    wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    z = torch.randn(1, MAIN_SIZE, MAIN_SIZE, MAIN_SIZE, 1, device="cuda")
-    t = torch.tensor([0.5], device="cuda")
+    z = torch.randn(shape, device="cuda")
+    t = torch.full((shape[0],), 0.5, device="cuda")
     n_active = 2
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
@@ -2252,13 +2605,37 @@ def phase_profile(torch, forward, tag="forward"):
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=50))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": f"profile_{tag}", "forward_ms": forward_ms,
-          "device_busy_ms_per_forward": busy_ms,
-          "idle_share": (max(0.0, 1.0 - busy_ms / forward_ms)
-                         if busy_ms > 0 else None),
-          "by_category_ms": {k: us / 1e3 for k, us in sorted(
-              by_cat.items(), key=lambda kv: -kv[1])},
-          "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top]})
+    line = {"phase": f"profile_{tag}", "forward_ms": forward_ms,
+            "device_busy_ms_per_forward": busy_ms,
+            "idle_share": (max(0.0, 1.0 - busy_ms / forward_ms)
+                           if busy_ms > 0 else None),
+            "by_category_ms": {k: us / 1e3 for k, us in sorted(
+                by_cat.items(), key=lambda kv: -kv[1])},
+            "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top]}
+    emit(line)
+    return line
+
+
+def conv_gflop(torch, forward, shape):
+    """GFLOP of the 3x3x3 convs of one ``forward(z, t)`` on z of ``shape``
+    (2 * 27 * voxels * Cin * Cout each), from the shapes they are given."""
+    from vdm4cdm_torch.ops import conv as ops_conv
+
+    table = ops_conv._K3S1_KERNELS[False]
+    flops = []
+
+    def counted(x, w, *args, **kwargs):
+        flops.append(2 * 27 * x.shape[:-1].numel() * w.shape[3] * w.shape[4])
+        return table[0](x, w, *args, **kwargs)
+
+    ops_conv._K3S1_KERNELS[False] = (counted,) + table[1:]
+    try:
+        with torch.inference_mode():
+            forward(torch.randn(shape, device="cuda"),
+                    torch.full((shape[0],), 0.5, device="cuda"))
+    finally:
+        ops_conv._K3S1_KERNELS[False] = table
+    return sum(flops) / 1e9, len(flops)
 
 
 def phase_profile_train(torch, state, step, batch, gen, tag="train"):
@@ -2430,6 +2807,9 @@ def main() -> int:
         phase_ddnm(torch, vt, K)
     if "cli" in phases:
         phase_cli(torch, vt, K, heads, bare)
+    blessed = None
+    if "blessed" in phases:
+        blessed = phase_blessed(torch, vt, K, heads)
     if "sharded" in phases:
         phase_sharded(torch, heads)
     # the profiler runs last, so that tracing cannot touch a timed phase
@@ -2439,6 +2819,21 @@ def main() -> int:
             phase_profile(torch, lambda z, t: vdm.eps_hat(z, t, s, [v]))
         if trainer is not None:
             phase_profile_train(torch, *trainer)
+        if blessed is not None:
+            vdm_b, s_b, v_b = blessed
+            fwd_b = lambda z, t: vdm_b.eps_hat(z, t, s_b, [v_b])  # noqa: E731
+            shape = (BLESSED_REPS,) + (32,) * 3 + (1,)
+            prof = phase_profile(torch, fwd_b, tag="blessed_forward",
+                                 shape=shape)
+            gflop, n_convs = conv_gflop(torch, fwd_b, shape)
+            conv_ms = prof["by_category_ms"][
+                _category("conv3d_k3s1_f32_kernel")]
+            emit({"phase": "blessed_conv_rate", "shape": list(shape),
+                  "dtype": "float32", "convs": n_convs,
+                  "conv_gflop_per_forward": gflop, "conv_ms": conv_ms,
+                  "tflop_per_s": gflop / conv_ms,
+                  "share_of_f32_peak": gflop / conv_ms * 1e12
+                  / PEAK_FLOPS["float32"]})
         if sfm_trainer is not None:
             phase_profile_train(torch, *sfm_trainer, tag="sfm_train")
             sfm, batch = sfm_trainer[0].model, sfm_trainer[2]
@@ -2457,6 +2852,7 @@ def main() -> int:
          "replaces": META[name][2], "shape": h["shape"],
          "dtype": h["dtype"], "padding": h.get("mode"),
          "launches": h["launches"],
+         "launches_blessed": h.get("launches_blessed"),
          "launches_cli": h.get("launches_cli"),
          "launches_sfm_train": h.get("launches_sfm_train"),
          "launches_vdm_train": h.get("launches_vdm_train"),

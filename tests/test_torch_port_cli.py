@@ -133,6 +133,7 @@ def test_registry_lookup_reads_models_yaml_and_refuses_orbax(monkeypatch,
     monkeypatch.chdir(ROOT)  # the registry's ckpt_dir is relative to it
     with pytest.raises(JaxCheckpointError, match="JAX"):
         generate.main(["VDM_GRF_c_c_32", str(tmp_path / "g"), "CV_12_12",
+                       "--model-registry", str(registry),
                        "--device", "cpu", "--n-sampling-steps", "1"])
     assert hashlib.sha256(registry.read_bytes()).hexdigest() == before
 

@@ -3,6 +3,11 @@ counterpart of ``vdm4cdm_tpu/cli/generate.py``.
 
     python -m vdm4cdm_torch.cli.generate MODEL_NAME SAVE_PATH RUNTYPE \
         --ckpt-dir RUN/checkpoints
+    python -m vdm4cdm_torch.cli.generate VDM_GRF_c_c_32 SAVE_PATH CV_12_12
+
+Without ``--ckpt-dir`` the checkpoint, its step and the preset come from the
+model's entry in ``--model-registry`` (default ``configs/models_torch.yaml``,
+the checkpoints this package reads).
 
 Runtypes (reference generate_3D.py:43-97, generate_3D_1P.py:43-70):
     CV_12_12 — 12 held-out CV boxes x 12 posterior samples -> gen_{i}.npy
@@ -28,7 +33,7 @@ import torch
 
 from .._device import resolve_device
 from ._common import (add_device_arg, apply_overrides, parse_overrides,
-                      require_unsharded)
+                      read_registry, require_unsharded)
 
 ONE_P_INDICES = [0, 4, 7, 23, 28]
 ONE_P_NAMES = ["fid", "Om_m2", "Om_p2", "ASN1_m3", "ASN1_p3"]
@@ -43,8 +48,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint directory of a run (default: looked up "
                          "in --model-registry by model name)")
-    ap.add_argument("--model-registry", type=str, default="configs/models.yaml",
-                    help="trained-model registry (YAML, read only)")
+    ap.add_argument("--model-registry", type=str,
+                    default="configs/models_torch.yaml",
+                    help="trained-model registry (YAML, read only): the "
+                         "checkpoints this package reads")
     ap.add_argument("--ckpt-step", type=int, default=None)
     ap.add_argument("--n-sampling-steps", type=int, default=250)
     ap.add_argument("--reps-per-batch", type=int, default=1,
@@ -69,10 +76,7 @@ def main(argv=None):
 
     registry_entry = {}
     if args.ckpt_dir is None and os.path.exists(args.model_registry):
-        import yaml
-
-        with open(args.model_registry) as f:
-            reg = yaml.safe_load(f) or {}
+        reg = read_registry(args.model_registry)
         registry_entry = reg.get(args.model_name) or {}
         args.ckpt_dir = registry_entry.get("ckpt_dir")
         if args.ckpt_step is None:

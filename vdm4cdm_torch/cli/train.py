@@ -11,18 +11,22 @@ card and without ``--device cpu`` it raises. The run's directory is
 ``<run.out_dir>/<run.experiment_name>/`` (``metrics.csv`` and
 ``checkpoints/<step>/``); running the same command again resumes from its
 latest checkpoint. ``--config`` reads YAML (PyYAML); ``--preset`` needs
-nothing beyond torch and numpy.
+nothing beyond torch and numpy. Each validation samples from the model and
+hands the validation figure to the loggers; without matplotlib the CLI says
+so once and trains without figures.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import sys
 
 import torch
 
 from .._device import resolve_device
-from ._common import (add_device_arg, apply_overrides, parse_overrides,
+from ._common import (add_device_arg, apply_overrides,
+                      make_validation_figure_fn, parse_overrides,
                       require_unsharded)
 
 __all__ = ["main", "parse_overrides"]
@@ -76,7 +80,13 @@ def main(argv=None):
         resume=cfg.run.resume,
         ema_decay=cfg.run.ema_decay,
     )
-    trainer = Trainer(model, tc)
+    draw_figure = None
+    if importlib.util.find_spec("matplotlib") is None:
+        print("[train] validation figures are off: matplotlib is not "
+              "installed", flush=True)
+    else:
+        draw_figure = make_validation_figure_fn(cfg, model, dm)
+    trainer = Trainer(model, tc, draw_figure=draw_figure)
 
     if cfg.run.warm_start_ckpt:
         load_params(cfg.run.warm_start_ckpt, model)

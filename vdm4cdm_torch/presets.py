@@ -99,15 +99,17 @@ PRESETS: dict[str, ExperimentConfig] = {
         run=RunConfig(max_steps=100, val_check_interval=50, ckpt_every_steps=100,
                       learning_rate=2e-3),
     ),
-    # ---- blessed in-repo run: the registry-chain proof. Trained to real
-    # convergence on the synthetic GRF substrate (no CAMELS data exists in
-    # this environment), blessed in configs/models.yaml, and consumed by
-    # vdm4cdm-generate / calc_ss from the registry name alone — the role the
-    # reference's configs.yaml entries (configs.yaml:3) play with CAMELS
-    # checkpoints on its cluster. 3D so the calc_ss statistics (depth
-    # projections, 3D P(k)) carry their reference semantics.
-    # tests/test_acceptance.py gates sample quality (P(k) band, log-PDF
-    # overlap, r(k) floor) against this entry.
+    # ---- blessed in-repo run: the registry-chain proof. Trained with the
+    # JAX package on the synthetic GRF substrate (no CAMELS data exists in
+    # this repository); its orbax checkpoint is registered in
+    # configs/models.yaml. This package reads the converted copy registered
+    # in configs/models_torch.yaml (blessed/VDM_GRF_c_c_32/torch, written by
+    # interop/blessed.py), so `python -m vdm4cdm_torch.cli.generate` and
+    # `.calc_ss` run it from the name alone, the role the reference's
+    # configs.yaml entries (configs.yaml:3) play with CAMELS checkpoints.
+    # 3D so the calc_ss statistics (depth projections, 3D P(k)) carry their
+    # reference semantics. tests/test_torch_port_blessed.py gates sample
+    # quality (P(k) band, log-PDF overlap, r(k) floor, spread, DDNM) on it.
     "VDM_GRF_c_c_32": ExperimentConfig(
         model=ModelConfig(family="vdm", ndim=3, chs=(16, 32, 48, 64)),
         data=DataConfig(kind="grf", cropsize=32, batch_size=8),

@@ -5,7 +5,10 @@ Layout: ``<directory>/<step>/checkpoint.pt``, one ``torch.save`` file per
 step, holding ``{"format", "step", "params", "opt_state", "ema_params"}``:
 the parameters by name, the optimizer's ``{"count", "mu", "nu"}`` (each
 moment in the dtype it has in training, so a bf16 first moment stays bf16)
-and the EMA (None when disabled), all as CPU tensors. Every checkpoint is
+and the EMA (None when disabled), all as CPU tensors; a checkpoint converted
+from the JAX package (``interop/blessed.py``) has no optimizer state
+(``opt_state`` None), may hold the EMA alone (``params`` None), and only
+samples or warm-starts. Every checkpoint is
 kept (the reference's ``save_top_k=-1``). A file is written under a
 temporary name in its step directory and moved into place with
 ``os.replace``, so a step whose file exists is complete.
@@ -44,8 +47,8 @@ def _check_not_orbax(directory: str, names: List[str]) -> None:
         if os.path.exists(os.path.join(directory, name, ORBAX_MARKER)):
             raise JaxCheckpointError(
                 f"{directory} holds a JAX (orbax) checkpoint (step {name}); "
-                f"load it with the JAX package and convert its params with "
-                f"vdm4cdm_torch.params_from_jax")
+                f"load it with the JAX package and convert it with "
+                f"vdm4cdm_torch.interop.blessed.write_converted")
     if os.path.exists(os.path.join(directory, ORBAX_MARKER)):
         raise JaxCheckpointError(
             f"{directory} is a JAX (orbax) checkpoint step directory")
@@ -83,6 +86,23 @@ def read_checkpoint(directory: str, step: Optional[int] = None) -> dict:
     if not isinstance(payload, dict) or payload.get("format") != FORMAT:
         raise ValueError(f"{path} is not a {FORMAT} checkpoint")
     return payload
+
+
+def write_payload(directory: str, payload: dict) -> str:
+    """Write ``payload`` (with its ``"step"``) as that step's checkpoint
+    file under ``directory``, through a temporary name; returns the path."""
+    step_dir = os.path.join(directory, str(int(payload["step"])))
+    os.makedirs(step_dir, exist_ok=True)
+    path = os.path.join(step_dir, FILE_NAME)
+    fd, tmp = tempfile.mkstemp(prefix=f".{FILE_NAME}.", dir=step_dir)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return path
 
 
 class CheckpointManager:
@@ -125,17 +145,7 @@ class CheckpointManager:
             "ema_params": (None if state.ema_params is None
                            else _cpu(state.ema_params)),
         }
-        step_dir = os.path.join(self.directory, str(step))
-        os.makedirs(step_dir, exist_ok=True)
-        path = os.path.join(step_dir, FILE_NAME)
-        fd, tmp = tempfile.mkstemp(prefix=f".{FILE_NAME}.", dir=step_dir)
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(payload, f)
-            os.replace(tmp, path)
-        except BaseException:
-            os.unlink(tmp)
-            raise
+        path = write_payload(self.directory, payload)
         self.last_save = {"step": step, "bytes": os.path.getsize(path),
                           "seconds": time.perf_counter() - t0}
         return path
@@ -151,6 +161,9 @@ class CheckpointManager:
         if step is None and self.latest_step() is None:
             return None
         payload = read_checkpoint(self.directory, step)
+        if payload["params"] is None or payload["opt_state"] is None:
+            raise ValueError(f"{self.directory} step {payload['step']} is a "
+                             f"converted checkpoint: it does not resume a run")
         params = dict(state.model.named_parameters())
         _copy_into(params, payload["params"], "params")
         saved_opt = payload["opt_state"]
@@ -188,11 +201,17 @@ def load_params(directory: str, model: Optional[torch.nn.Module] = None,
     """The parameters of ``step`` (None = the latest) in ``directory``, by
     name, as CPU tensors: the EMA when the checkpoint has one and
     ``prefer_ema`` is set (generation samples from it). With ``model`` they
-    are also copied into it (same names and shapes, or ValueError)."""
+    are also copied into it (same names and shapes, or ValueError). A
+    checkpoint that holds the EMA alone (``params`` None, as the converted
+    blessed model does) gives it only to ``prefer_ema``; without, it is a
+    ValueError, never the EMA in the raw parameters' place."""
     payload = read_checkpoint(directory, step)
     params = payload["params"]
     if prefer_ema and payload.get("ema_params") is not None:
         params = payload["ema_params"]
+    if params is None:
+        raise ValueError(f"{directory} step {payload['step']} holds the EMA "
+                         f"weights alone: load them with prefer_ema=True")
     if model is not None:
         _copy_into(dict(model.named_parameters()), params, "params")
     return params
