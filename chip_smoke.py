@@ -28,6 +28,12 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 weight in f32 and in x's dtype, its use as the dx pass,
                 ``mm1x1_dw``) at every ``skip_proj`` site of the flagship
                 and past 256 channels; the sampler's batch-1 128^3 shapes;
+                every conv site of the trained model (``VDM_GRF_c_c_32``,
+                f32, circular: the forward at batch 12, dx and dw at batch
+                8), one ``site`` line each with cuDNN f32 with TF32 off and
+                on, the 3xTF32 and FFMA bounds, and the device times alone
+                of the kernel and cuDNN f32 from CUDA-graph replays
+                (``blessed_sites``);
                 then every kernel again at the ``sfm`` phase's shapes (bf16,
                 zeros padding, batch 4 forward and backward and batch 1
                 forward, every site), where the ``kernels`` line's times,
@@ -39,7 +45,8 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 bound times. Library yardsticks run cuDNN on
                 ``channels_last_3d`` operands with ``cudnn.benchmark`` on
                 (restored after); ``--phases sites`` runs only the site
-                timings (the GroupNorm shapes also at batch 2), and with
+                timings (the trained model's f32 sites first, the GroupNorm
+                shapes also at batch 2), and with
                 ``--port DIR`` times the kernels of the ``vdm4cdm_torch/``
                 in DIR (an earlier commit, unpacked) for a before/after
                 table on one card;
@@ -100,7 +107,9 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 a call), the acceptance gate's statistics on boxes 0 and 1
                 (4 reps each) and DDNM (50 steps, l = 3) beside their
                 thresholds and the JAX run's recorded values, then
-                ``cli.calc_ss``; any threshold failed fails the run;
+                ``cli.calc_ss``; any threshold failed fails the run; then a
+                warm-up and 3 timed f32 train steps of the same model from
+                its preset (batch 8, 32^3, the trained weights);
  12. sharded  - the spatially sharded (``sp``) path: the parent spawns two
                 ranks on cuda:0, joined over gloo (NCCL refuses two ranks
                 on one device; gloo stages the halo planes through pinned
@@ -126,10 +135,14 @@ while developing and then prints no ``kernels`` or ``ok`` line):
  13. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM), and
                 over the blessed model's forward at (12, 32^3) f32 with its
-                3x3x3 convs' GFLOP and rate (``blessed_conv_rate``);
+                3x3x3 convs' GFLOP, rate and share of the 3xTF32 bound
+                (``blessed_conv_rate``), and over its f32 train step
+                (``blessed_train_dw``: dw's device ms a step);
  14. the ``kernels`` line (``launches``: of the four forward kernels, the
-     ``blessed`` phase's, this slice's path, also as ``launches_blessed``;
-     of the training kernels, which that path does not run, the whole
+     ``blessed`` phase's, this slice's path, also as ``launches_blessed``,
+     and the CUDA kernels the conv forward's calls launched there as
+     ``cuda_launches_blessed`` (an f32 call launches two or three); of the
+     training kernels, which that path does not run, the whole
      ``cli`` phase's, also as ``launches_cli``; ``ms``,
      ``bound_ms`` and ``max_abs_err`` at the SFM's 128^3 batch-4 shape, named
      in ``shape`` and ``padding``; the earlier paths' launches as
@@ -151,6 +164,7 @@ zero second ResBlock convs, so its output is 0 and would hide a broken kernel.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -165,8 +179,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s per type
+# ("float32" on the FMA units, "tf32" on the tensor cores)
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # the two models, by preset: the flagship VDM (bench.py's model) and the SFM
 VDM_PRESET, SFM_PRESET = "trainVDM3D128_c_c", "trainSFM3D128_c_c"
@@ -287,19 +302,73 @@ def bound_ms(flops: float, nbytes: float, dtype_name: str):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def library_time_ms(fn, iters: int) -> float:
-    """The time of one library call (a yardstick, used nowhere in the port)
-    with ``torch.backends.cudnn.benchmark`` on, so that cuDNN times its
+@contextlib.contextmanager
+def cudnn_benchmark(tf32: bool = False):
+    """``torch.backends.cudnn.benchmark`` on, so that cuDNN times its
     algorithms for these shapes and layouts and keeps the fastest (the
-    warm-up calls pay for that search); the setting is restored after."""
+    warm-up calls pay for that search); with ``tf32`` cuDNN may also round
+    f32 operands to TF32 (another function: one TF32 pass). The settings
+    are restored after."""
     import torch
 
-    before = torch.backends.cudnn.benchmark
+    before = (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
     torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
-        return cuda_time_ms(fn, iters, warmup=3)
+        yield
     finally:
-        torch.backends.cudnn.benchmark = before
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = before
+
+
+def library_time_ms(fn, iters: int, tf32: bool = False) -> float:
+    """The time of one library call (a yardstick, used nowhere in the port)
+    under ``cudnn_benchmark(tf32)``."""
+    with cudnn_benchmark(tf32):
+        return cuda_time_ms(fn, iters, warmup=3)
+
+
+def graph_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``, the host's launch cost left out:
+    ``iters`` calls captured in one CUDA graph (after two warm-up calls on
+    a side stream), replayed ``reps`` times between events. Where a call's
+    kernels take less time than the host needs to launch them,
+    ``cuda_time_ms`` reads the host's rate and this the card's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def f32_yardsticks(kern, lib, n, flops, nbytes):
+    """An f32 conv's extra yardsticks: cuDNN with TF32 on, the bounds of
+    the work in 3xTF32 (three TF32 products an f32 one, on the tensor
+    cores) and on the FMA units, and the device time alone of the kernel
+    and of cuDNN f32 (``graph_time_ms``)."""
+    with cudnn_benchmark():
+        lib_device = graph_time_ms(lib)
+    return {"library_tf32_ms": library_time_ms(lib, n, tf32=True),
+            "bound_3xtf32_ms": bound_ms(3 * flops, nbytes, "tf32")[0],
+            "bound_ffma_ms": bound_ms(flops, nbytes, "float32")[0],
+            "device_ms": graph_time_ms(kern), "library_device_ms": lib_device}
 
 
 def channels_last(t):
@@ -387,7 +456,23 @@ def conv_cases():
     ]
 
 
-def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
+def blessed_conv_cases():
+    """(size, cin, cout) of every distinct 3x3x3 conv site of the trained
+    model (``VDM_GRF_c_c_32``: chs 16-64 at 32^3, f32, circular), the split
+    pairs' halves included: 13 sites of its 59 convs a forward, traced from
+    one forward (``conv_gflop`` holds the list to the forward on the
+    card)."""
+    return [(32, 16, 16), (32, 32, 16), (32, 32, 32),
+            (16, 16, 32), (16, 32, 32), (16, 48, 32), (16, 48, 48),
+            (8, 32, 48), (8, 48, 48), (8, 64, 48), (8, 64, 64),
+            (4, 48, 64), (4, 64, 64)]
+
+
+def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed,
+               tf32=False):
+    """The forward with bias, residual and sums against its plain version;
+    ``timed`` adds kernel, plain, library and bound times, ``tf32`` the f32
+    yardsticks (``f32_yardsticks``)."""
     import torch.nn.functional as F
 
     dtype = getattr(torch, dtype_name)
@@ -437,6 +522,9 @@ def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
                     x, w, bias, res, circ, True), max(2, n // 4)),
                 library_ms=library_time_ms(lib, n), library_call=LIB_CONV,
                 bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+            if tf32:
+                line.update(f32_yardsticks(lambda: K.conv3d_k3s1_fwd(
+                    x, w, bias, res, circ, True), lib, n, flops, nbytes))
     emit(line)
     return line
 
@@ -549,7 +637,8 @@ def fail_unless(ok: bool, what: str, line: dict) -> None:
         raise AssertionError(f"{what}: {line}")
 
 
-def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
+def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed,
+                   tf32=False):
     """The dx pass (the forward kernel on ct with flipped, transposed
     weights) and ``conv3d_k3s1_dw`` against autograd through the plain conv
     in f32, and dw/db also against the module's plain version. Returns the
@@ -568,9 +657,11 @@ def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
         dx = K.conv3d_k3s1_dx(ct, w, circ)
         dw, db = K.conv3d_k3s1_dw(x, ct, circ)
         dw_p, db_p = K.conv3d_k3s1_dw_plain(x, ct, circ)
-    # autograd through the plain conv: f32, weights rounded to x's dtype
-    xr = x.float().requires_grad_(True)
-    wr = w.to(dtype).float().requires_grad_(True)
+    # autograd through the plain conv: f32, weights rounded to x's dtype;
+    # detached, so that in f32 (where .float() is the tensor itself) the
+    # kernels' inputs do not come to require grad
+    xr = x.float().detach().requires_grad_(True)
+    wr = w.to(dtype).float().detach().requires_grad_(True)
     br = torch.zeros(cout, device="cuda", requires_grad=True)
     yr, _ = K.conv3d_k3s1_plain(xr, wr, br, None, circ, False)
     dx_r, dw_r, db_r = torch.autograd.grad(yr, (xr, wr, br), ct.float())
@@ -615,27 +706,34 @@ def check_conv_bwd(torch, K, size, cin, cout, mode, dtype_name, batch, timed):
         wc = channels_last(w.to(dtype).permute(4, 3, 0, 1, 2))
         wtc = channels_last(w.to(dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2))
         w_t = w.flip(0, 1, 2).transpose(3, 4)
-        b_ms, b_by = bound_ms(flops, vox * (cout + cin) * elt + wbytes,
-                              dtype_name)
+        dx_bytes = vox * (cout + cin) * elt + wbytes
+        b_ms, b_by = bound_ms(flops, dx_bytes, dtype_name)
+        dx_lib = lambda: F.conv3d(ctp, wtc, padding=pad)  # noqa: E731
         dx_line.update(
             ms=cuda_time_ms(lambda: K.conv3d_k3s1_dx(ct, w, circ), n),
             plain_ms=cuda_time_ms(lambda: K.conv3d_k3s1_plain(
                 ct, w_t, circular=circ), max(2, n // 4)),
-            library_ms=library_time_ms(
-                lambda: F.conv3d(ctp, wtc, padding=pad), n),
+            library_ms=library_time_ms(dx_lib, n),
             library_call=LIB_CONV + " (ct, flipped transposed weights)",
             bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
-        b_ms, b_by = bound_ms(
-            flops, vox * (cin + cout) * elt + (27 * cin * cout + cout) * 4,
-            dtype_name)
+        dw_bytes = vox * (cin + cout) * elt + (27 * cin * cout + cout) * 4
+        b_ms, b_by = bound_ms(flops, dw_bytes, dtype_name)
+        dw_lib = lambda: conv_weight_grad(xc, ctc, wc, pad)  # noqa: E731
         line.update(
             ms=cuda_time_ms(lambda: K.conv3d_k3s1_dw(x, ct, circ), n),
             plain_ms=cuda_time_ms(
                 lambda: K.conv3d_k3s1_dw_plain(x, ct, circ), 2, 1),
-            library_ms=library_time_ms(
-                lambda: conv_weight_grad(xc, ctc, wc, pad), n),
+            library_ms=library_time_ms(dw_lib, n),
             library_call=LIB_WGRAD,
             bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9)
+        if tf32:
+            with torch.no_grad():
+                dx_line.update(f32_yardsticks(
+                    lambda: K.conv3d_k3s1_dx(ct, w, circ), dx_lib, n, flops,
+                    dx_bytes))
+                line.update(f32_yardsticks(
+                    lambda: K.conv3d_k3s1_dw(x, ct, circ), dw_lib, n, flops,
+                    dw_bytes))
     emit(dx_line)
     emit(line)
     return dx_line, line
@@ -1027,6 +1125,8 @@ def phase_kernels(torch, K):
     # the sampler's headline shapes (batch 1, 128^3, bf16)
     check_conv(torch, K, MAIN_SIZE, 32, 32, "circular", "bfloat16", 1, True)
     check_norm(torch, K, MAIN_SIZE, 32, "bfloat16", 1, True)
+    # the trained model's f32 path: forward, dx and dw at its every site
+    blessed_sites(torch, K)
 
     # ---- the backward kernels, at the VDM train step's shapes (batch 2)
     for size, cin, cout, _ in conv_cases():
@@ -1057,6 +1157,31 @@ def phase_kernels(torch, K):
             check_mm1x1(torch, K, size, cin, cout, dtype_name, TRAIN_BATCH,
                         timed=dtype_name == "bfloat16")
     return check_sfm_shapes(torch, K)
+
+
+def blessed_sites(torch, K):
+    """Every conv site of the trained model, f32, circular, checked and
+    timed: the forward at the sampler's batch (``BLESSED_REPS``), the dx
+    pass and dw at the train step's (``BLESSED_TRAIN_BATCH``). One ``site``
+    line each: the kernel's ms beside cuDNN in f32 (TF32 off, the same
+    function), cuDNN with TF32 on (one TF32 pass, another function), the
+    3xTF32 and FFMA bounds, and the device time alone of the kernel and of
+    cuDNN f32 (``device_ms``, ``library_device_ms``: at the small sites
+    ``ms`` reads the host's launch rate)."""
+    mode, dt = "circular", "float32"
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms",
+            "library_tf32_ms", "bound_3xtf32_ms", "bound_ffma_ms", "rel_err",
+            "tol")
+    for size, cin, cout in blessed_conv_cases():
+        fwd = check_conv(torch, K, size, cin, cout, mode, dt, BLESSED_REPS,
+                         True, tf32=True)
+        dx, dw = check_conv_bwd(torch, K, size, cin, cout, mode, dt,
+                                BLESSED_TRAIN_BATCH, True, tf32=True)
+        emit({"phase": "site", "model": BLESSED, "size": size, "cin": cin,
+              "cout": cout, "mode": mode, "dtype": dt,
+              "batch_fwd": BLESSED_REPS, "batch_bwd": BLESSED_TRAIN_BATCH,
+              **{part: {k: ln[k] for k in keys}
+                 for part, ln in (("fwd", fwd), ("dx", dx), ("dw", dw))}})
 
 
 def conv_sites(torch, K):
@@ -1094,11 +1219,14 @@ def check_plans(torch, K):
     sites += [(TRAIN_BATCH, local + dz, size, cin, cout)
               for local, size, cin, cout, _ in zhalo_cases()
               for dz in (0, 2)]
+    sites += [(b, size, size, cin, cout)
+              for b in (1, BLESSED_TRAIN_BATCH, BLESSED_REPS)
+              for size, cin, cout in blessed_conv_cases()]
     bad = []
     for b, d, hw, cin, cout in sites:
         for dtype in (torch.bfloat16, torch.float32):
             for ci, co in ((cin, cout), (cout, cin)):
-                want = (C.fwd_plan(dtype, b, d, hw, hw, ci, co),
+                want = (C.fwd_plan(dtype, b, d, hw, hw, ci, co, sms=sms),
                         C.dw_plan(dtype, b, d, hw, hw, ci, co, sms=sms))
                 got = C.compiled_plans(dtype, b, d, hw, hw, ci, co)
                 if got != want:
@@ -1407,18 +1535,22 @@ def resident_gib(torch) -> float:
 
 
 def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed,
-                      kernels=None, shard=None):
+                      kernels=None, shard=None, lr=3e-4, moment="bfloat16",
+                      ema_decay=EMA_DECAY):
     """One warm-up step, then ``n_steps`` timed steps of ``make_train_step``
-    (Adam 3e-4, clip 0.5, bf16 first moment, EMA): checks that they gave
-    finite, changed parameters through every kernel of ``kernels`` (default
-    the unsharded path's), and returns the measurements and (state, step,
-    batch, generator). With ``shard`` (a rank's ShardCtx) the measurements
-    add its collectives' counters over the timed steps."""
+    (Adam ``lr``, clip 0.5, first moment in ``moment`` (None: f32), EMA):
+    checks that they gave finite, changed parameters through every kernel of
+    ``kernels`` (default the unsharded path's), and returns the
+    measurements and (state, step, batch, generator), with the U-Net's
+    dtype, dropout and widths. With ``shard`` (a rank's ShardCtx) the
+    measurements add its collectives' counters over the timed steps."""
     kernels = kernels or UNSHARDED_KERNELS
-    opt = vt.make_optimizer(learning_rate=3e-4, grad_clip=0.5,
-                            moment_dtype=torch.bfloat16)
+    net = model.score_model if hasattr(model, "score_model") else model.unet
+    opt = vt.make_optimizer(learning_rate=lr, grad_clip=0.5,
+                            moment_dtype=getattr(torch, moment)
+                            if moment else None)
     state = vt.TrainState(0, model, opt.init(model), vt.init_ema(model))
-    step = vt.make_train_step(model, opt, ema_decay=EMA_DECAY)
+    step = vt.make_train_step(model, opt, ema_decay=ema_decay)
     gen = torch.Generator(device="cuda").manual_seed(gen_seed)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     # warm-up: Triton specializations and cuDNN plans for these shapes
@@ -1436,6 +1568,7 @@ def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
+    cuda_counts = K.cuda_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"].item() for m in history]
     norms = [m["grad_norm"].item() for m in history]
@@ -1446,13 +1579,16 @@ def timed_train_steps(torch, vt, K, model, batch, n_steps, gen_seed,
     finite = all(math.isfinite(v) for v in losses + norms) and all(
         bool(torch.isfinite(p).all()) for p in model.parameters())
     voxels = next(iter(batch.values())).numel()
-    facts = {"dtype": "bfloat16", "dropout": DROPOUT_P,
-             "moment_dtype": "bfloat16", "ema_decay": EMA_DECAY,
-             "chs": list(CHS), "steps": n_steps, "seconds": dt,
+    facts = {"dtype": str(net.compute_dtype).removeprefix("torch."),
+             "dropout": net.dropout_prob,
+             "moment_dtype": moment or "float32", "ema_decay": ema_decay,
+             "chs": list(net.chs), "steps": n_steps, "seconds": dt,
              "s_per_step": dt / n_steps,
              "voxels_per_s": voxels * n_steps / dt,
              "peak_mem_gib": peak / 2 ** 30, "launches": counts,
              "launches_per_step": {k: c / n_steps for k, c in counts.items()},
+             "cuda_launches_per_step": {k: c / n_steps
+                                        for k, c in cuda_counts.items()},
              "loss": losses, "grad_norm": norms, "finite": finite,
              "max_param_change": moved, "max_ema_change": ema_moved,
              "state_step": state.step}
@@ -1917,6 +2053,7 @@ def phase_cli(torch, vt, K, kernels, bare):
 # recorded values (tests/test_acceptance.py) stand beside them
 BLESSED = "VDM_GRF_c_c_32"
 BLESSED_CAMPAIGN, BLESSED_STEPS, BLESSED_REPS = "CV_12_12", 100, 12
+BLESSED_TRAIN_BATCH = 8  # the preset's batch: the train step that made it
 GATE_BOXES, GATE_REPS = 2, 4
 GATE_JAX_RECORDED = {"pk_ratio": "[0.79, 1.29]", "overlap": "0.38",
                      "low_k_r": "min 0.967", "spread_over_std": "not recorded",
@@ -1967,6 +2104,9 @@ def phase_blessed(torch, vt, K, kernels):
     entry = read_registry("configs/models_torch.yaml")[BLESSED]
     cfg = vt.preset(entry["preset"])
     counts = {}
+    # the CUDA kernels those calls launched (an f32 forward call: the weight
+    # split, the conv and, where K is split, the reduce)
+    cuda_counts = {}
 
     # 1. eps_hat on the card against the CPU path, on one test batch
     models = {}
@@ -1986,6 +2126,7 @@ def phase_blessed(torch, vt, K, kernels):
                                      [v.cuda()]).cpu()
     torch.cuda.synchronize()
     counts["eps_hat"] = K.launch_counts()
+    cuda_counts["eps_hat"] = K.cuda_launch_counts()
     with torch.inference_mode():
         ref = models["cpu"].eps_hat(z, t, s, [v])
     abs_err, err = rel_err(got, ref)
@@ -2015,6 +2156,7 @@ def phase_blessed(torch, vt, K, kernels):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts["generate"] = K.launch_counts()
+    cuda_counts["generate"] = K.cuda_launch_counts()
     files = sorted(camp.iterdir())
     fields = [np.load(p) for p in files]
     n_fields = sum(len(a) for a in fields)
@@ -2029,7 +2171,11 @@ def phase_blessed(torch, vt, K, kernels):
             "launches": counts["generate"],
             "launches_per_forward": {
                 k: c / (n_fields // BLESSED_REPS * BLESSED_STEPS)
-                for k, c in counts["generate"].items()}}
+                for k, c in counts["generate"].items()},
+            "cuda_launches": cuda_counts["generate"],
+            "cuda_launches_per_forward": {
+                k: c / (n_fields // BLESSED_REPS * BLESSED_STEPS)
+                for k, c in cuda_counts["generate"].items()}}
     emit(line)
     fail_unless(rc == 0 and len(files) == 12 and line["finite"] and all(
         a.shape == (12, 1, 32, 32, 32) for a in fields)
@@ -2069,6 +2215,7 @@ def phase_blessed(torch, vt, K, kernels):
     torch.cuda.synchronize()
     ddnm_s = time.perf_counter() - t0
     counts["ddnm"] = K.launch_counts()
+    cuda_counts["ddnm"] = K.cuda_launch_counts()
     stats.update(ddnm_statistics(x_hat, x, mask))
     ok = gate_passes(stats)
     stats["pk_ratio"] = [float(stats["pk_ratio"].min()),
@@ -2114,8 +2261,12 @@ def phase_blessed(torch, vt, K, kernels):
 
     total = {name: sum(c.get(name, 0) for c in counts.values())
              for name in UNSHARDED_KERNELS}
+    cuda_total = {name: sum(c[name] for c in cuda_counts.values())
+                  for name in K.cuda_launch_counts()}
     emit({"phase": "blessed", "what": "launches", "by_step": counts,
-          "total": total, "seconds": time.perf_counter() - t_phase})
+          "total": total, "cuda_by_step": cuda_counts,
+          "cuda_total": cuda_total,
+          "seconds": time.perf_counter() - t_phase})
     fail_unless(min(total[k] for k in FORWARD_KERNELS) > 0,
                 "the blessed chain did not launch every forward kernel",
                 {"total": total})
@@ -2123,10 +2274,26 @@ def phase_blessed(torch, vt, K, kernels):
         kernels[name]["launches_blessed"] = total[name]
         if name in FORWARD_KERNELS:  # this slice's path runs these four
             kernels[name]["launches"] = total[name]
+    kernels["conv3d_k3s1_fwd"]["cuda_launches_blessed"] = cuda_total[
+        "conv3d_k3s1_fwd"]
+
+    # 5. the f32 train step that made the model: its preset (model, batch 8
+    # at 32^3, learning rate, f32 moments, EMA) from the trained weights
+    model = vt.build_model(cfg, device="cuda")
+    load_params(entry["ckpt_dir"], model, step=entry["ckpt_step"])
+    batch = loss_batch(torch, cfg.data.cropsize, BLESSED_TRAIN_BATCH, "cuda",
+                       62)
+    facts, trainer = timed_train_steps(
+        torch, vt, K, model, batch, TRAIN_STEPS, 63,
+        lr=cfg.run.learning_rate, moment=None, ema_decay=cfg.run.ema_decay)
+    emit({"phase": "blessed", "what": "train_step", "model": BLESSED,
+          "size": cfg.data.cropsize, "batch": BLESSED_TRAIN_BATCH, **facts})
+    for name in UNSHARDED_KERNELS:
+        kernels[name]["launches_blessed_train"] = facts["launches"][name]
     # the sampler's forward at the campaign's batch, for the profile phase
     reps = BLESSED_REPS
-    return vdm, s[:1].expand(reps, -1, -1, -1, -1).cuda(), v[:1].expand(
-        reps, -1).cuda()
+    return (vdm, s[:1].expand(reps, -1, -1, -1, -1).cuda(),
+            v[:1].expand(reps, -1).cuda(), trainer)
 
 
 # ----------------------------------------------------------- sharded phase
@@ -2618,14 +2785,16 @@ def phase_profile(torch, forward, tag="forward",
 
 def conv_gflop(torch, forward, shape):
     """GFLOP of the 3x3x3 convs of one ``forward(z, t)`` on z of ``shape``
-    (2 * 27 * voxels * Cin * Cout each), from the shapes they are given."""
+    (2 * 27 * voxels * Cin * Cout each), from the shapes they are given,
+    their count and their distinct (size, cin, cout) sites."""
     from vdm4cdm_torch.ops import conv as ops_conv
 
     table = ops_conv._K3S1_KERNELS[False]
-    flops = []
+    flops, sites = [], set()
 
     def counted(x, w, *args, **kwargs):
         flops.append(2 * 27 * x.shape[:-1].numel() * w.shape[3] * w.shape[4])
+        sites.add((x.shape[1], w.shape[3], w.shape[4]))
         return table[0](x, w, *args, **kwargs)
 
     ops_conv._K3S1_KERNELS[False] = (counted,) + table[1:]
@@ -2635,12 +2804,13 @@ def conv_gflop(torch, forward, shape):
                     torch.full((shape[0],), 0.5, device="cuda"))
     finally:
         ops_conv._K3S1_KERNELS[False] = table
-    return sum(flops) / 1e9, len(flops)
+    return sum(flops) / 1e9, len(flops), sites
 
 
 def phase_profile_train(torch, state, step, batch, gen, tag="train"):
-    """Device time by kernel over one train step at 128^3 (after a profiled
-    warm-up step) and the device's idle share against unprofiled steps."""
+    """Device time by kernel over one train step (after a profiled warm-up
+    step) and the device's idle share against unprofiled steps; returns
+    the device ms by category."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2671,13 +2841,15 @@ def phase_profile_train(torch, state, step, batch, gen, tag="train"):
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    by_cat = {k: us / 1e3 for k, us in by_cat.items()}
     emit({"phase": f"profile_{tag}", "step_ms": step_ms,
           "device_busy_ms_per_step": busy_ms,
           "idle_share": (max(0.0, 1.0 - busy_ms / step_ms)
                          if busy_ms > 0 else None),
-          "by_category_ms": {k: us / 1e3 for k, us in sorted(
-              by_cat.items(), key=lambda kv: -kv[1])},
+          "by_category_ms": dict(sorted(by_cat.items(),
+                                        key=lambda kv: -kv[1])),
           "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top]})
+    return by_cat
 
 
 META = {
@@ -2784,6 +2956,7 @@ def main() -> int:
 
     heads = {}
     if "sites" in phases:
+        blessed_sites(torch, K)
         conv_sites(torch, K)
         mm1x1_sites(torch, K)
         norm_sites(torch, K)
@@ -2820,20 +2993,33 @@ def main() -> int:
         if trainer is not None:
             phase_profile_train(torch, *trainer)
         if blessed is not None:
-            vdm_b, s_b, v_b = blessed
+            vdm_b, s_b, v_b, trainer_b = blessed
             fwd_b = lambda z, t: vdm_b.eps_hat(z, t, s_b, [v_b])  # noqa: E731
             shape = (BLESSED_REPS,) + (32,) * 3 + (1,)
             prof = phase_profile(torch, fwd_b, tag="blessed_forward",
                                  shape=shape)
-            gflop, n_convs = conv_gflop(torch, fwd_b, shape)
+            gflop, n_convs, sites = conv_gflop(torch, fwd_b, shape)
             conv_ms = prof["by_category_ms"][
                 _category("conv3d_k3s1_f32_kernel")]
-            emit({"phase": "blessed_conv_rate", "shape": list(shape),
-                  "dtype": "float32", "convs": n_convs,
-                  "conv_gflop_per_forward": gflop, "conv_ms": conv_ms,
-                  "tflop_per_s": gflop / conv_ms,
-                  "share_of_f32_peak": gflop / conv_ms * 1e12
-                  / PEAK_FLOPS["float32"]})
+            bound_3x = 3 * gflop * 1e9 / PEAK_FLOPS["tf32"] * 1e3
+            line = {"phase": "blessed_conv_rate", "shape": list(shape),
+                    "dtype": "float32", "convs": n_convs,
+                    "sites": sorted(sites), "conv_gflop_per_forward": gflop,
+                    "conv_ms": conv_ms, "tflop_per_s": gflop / conv_ms,
+                    "share_of_f32_peak": gflop / conv_ms * 1e12
+                    / PEAK_FLOPS["float32"], "bound_3xtf32_ms": bound_3x,
+                    "share_of_3xtf32_bound": bound_3x / conv_ms}
+            fail_unless(sites == set(blessed_conv_cases()),
+                        "the trained model's conv sites are not "
+                        "blessed_conv_cases()", line)
+            emit(line)
+            by_cat = phase_profile_train(torch, *trainer_b,
+                                         tag="blessed_train")
+            emit({"phase": "blessed_train_dw", "model": BLESSED,
+                  "batch": BLESSED_TRAIN_BATCH,
+                  "dw_ms_per_step": by_cat[_category("conv3d_dw_f32_kernel")],
+                  "conv_fwd_dx_ms_per_step": by_cat[
+                      _category("conv3d_k3s1_f32_kernel")]})
         if sfm_trainer is not None:
             phase_profile_train(torch, *sfm_trainer, tag="sfm_train")
             sfm, batch = sfm_trainer[0].model, sfm_trainer[2]
@@ -2853,6 +3039,8 @@ def main() -> int:
          "dtype": h["dtype"], "padding": h.get("mode"),
          "launches": h["launches"],
          "launches_blessed": h.get("launches_blessed"),
+         "cuda_launches_blessed": h.get("cuda_launches_blessed"),
+         "launches_blessed_train": h.get("launches_blessed_train"),
          "launches_cli": h.get("launches_cli"),
          "launches_sfm_train": h.get("launches_sfm_train"),
          "launches_vdm_train": h.get("launches_vdm_train"),

@@ -1,6 +1,7 @@
 // Shared by conv3d_fwd.cu and conv3d_dw.cu: the output brick, its haloed
 // input brick in shared memory, and the PTX wrappers (cp.async, ldmatrix,
-// mma.sync, wgmma's fences and descriptors) of the bf16 tensor-core paths.
+// mma.sync, wgmma's fences and descriptors) of the bf16 tensor-core paths and
+// the 3xTF32 split and mma.sync of the f32 paths.
 //
 // A brick is BD x BH x BW output voxels (d, h, w). Its input brick is one
 // voxel larger on every side, HD x HH x HW voxels, staged once in shared
@@ -93,6 +94,29 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---- 3xTF32 (the f32 paths): f = hi + lo with hi = tf32(f) and lo =
+// tf32(f - hi), both rounded to nearest, ties away (cvt.rna); f - hi is exact
+// in f32, and hi + lo holds f to about 2^-22 of |f|. A product is taken as
+// lo a * hi b + hi a * lo b + hi a * hi b (the small terms first), dropping
+// lo a * lo b (2^-22 of it): f32 accuracy on the TF32 tensor cores.
+__device__ __forceinline__ uint32_t tf32_rna(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float f, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+// D += A (16 x 8, row) B (8 x 8, col), TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma (sm_90a) synchronisation and shared-memory descriptors

@@ -45,9 +45,12 @@
 // changes from run to run and two runs agree to f32 rounding of a sum over
 // K terms, not bitwise.
 //
-// The f32 path (conv3d_dw_f32_kernel) serves the parity checks only: the
-// earlier design on plain FMAs (a block per (tap, tile, run of voxels), a
-// 4 x 4 register tile per thread) so that its products stay in full f32.
+// The f32 path (conv3d_dw_f32_kernel), the weight gradient of the trained
+// model's f32 train step: the same queue of items (16 ci x 32 or 16 co
+// tiles), on the TF32 tensor cores with the 3xTF32 split of
+// conv3d_brick.cuh (mma.sync from registers: both operands are MN-major);
+// bound 3 x 2 x 27 Cin Cout operations a voxel at 495 TFLOP/s, against 67 on
+// the FMA units. The kernel's comment says more.
 //
 // zmode 1 (halo) is the weight gradient of the sharded path's valid-in-z conv
 // (replaces _dw_kernel under zmode="halo", reached through
@@ -238,150 +241,191 @@ conv3d_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ct,
 
 // ----------------------------------------------------------------- f32 path
 
-constexpr int F_BK = 32;  // voxels per chunk
+constexpr int F_TCI = 16;                    // ci a tile: one m16 tile
+constexpr int F_THREADS = 9 * 32;            // warp (kz, ky) holds the three kx taps
+constexpr int F_XLD = F_TCI + 8;             // x row stride (floats): see below
+constexpr int F_XS = brick::NH * F_XLD * 4;  // the haloed x brick, bytes
 
-template <int BM, int BN>
-__global__ void __launch_bounds__((BM / 4) * (BN / 4))
+// co a tile: 32 where it divides Cout, else 16. Rows of TCO + 8 floats.
+int f32_co_tile(int Cout) { return Cout % 32 == 0 ? 32 : 16; }
+template <int TCO> struct DwF {
+  static constexpr int NT = TCO / 8;  // n8 tiles
+  static constexpr int CLD = TCO + 8;
+  static constexpr int STAGE = F_XS + brick::M * CLD * 4;
+  static constexpr int SMEM = 2 * STAGE;
+  static_assert(SMEM <= 232448, "two stages fit a CTA's shared memory");
+};
+
+// The same queue of (tile, brick) items as the bf16 path, tiles of 16 ci x
+// TCO co. Per item each of 9 warps takes the three kx taps of its (kz, ky)
+// over the brick's 32 rows of 8 voxels (the k8 steps), mma.sync m16n8k8 in
+// 3xTF32 with operands from registers. Both operands are MN-major here (the
+// voxels are the contraction): each lane reads its fragment elements with
+// 8-byte loads, which the fragment's index maps make contiguous: A row g
+// (g + 8) is ci 2g (2g + 1), B column g of n8 tile 2p (2p + 1) is co 16p +
+// 2g (+ 1), k slot t4 (t4 + 4) is voxel w = t4 (t4 + 4) of the brick row.
+// Rows of F_XLD (TCO + 8) floats put the four k slots' rows 8 banks apart:
+// no bank conflicts whatever a tap's shift. ct's split is taken once a k8
+// step for the warp's three taps, x's once a tap (a staged hi / lo copy of x
+// would not fit twice in shared memory). The tensor cores' f32 sums are
+// flushed into running sums (rounded to nearest) after every brick (96
+// accumulations).
+template <int TCO>
+__global__ void __launch_bounds__(F_THREADS, 1)
 conv3d_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ ct,
-                     float* __restrict__ dw, float* __restrict__ db, int B, int D, int H, int W,
-                     int Cin, int Cout, int circular, int zmode, long long run) {
-  constexpr int THR = (BM / 4) * (BN / 4);
-  constexpr int VEC = 4;
-  constexpr int SEGX = BM / VEC, SEGC = BN / VEC;
-  constexpr int NX = F_BK * SEGX / THR, NC = F_BK * SEGC / THR;
-  constexpr int LDX = BM + VEC, LDC = BN + VEC;
-  static_assert(NX >= 1 && NC >= 1 && F_BK * SEGX % THR == 0 && F_BK * SEGC % THR == 0,
-                "whole vectors per thread");
-  __shared__ __align__(16) float Xs[2][F_BK][LDX];
-  __shared__ __align__(16) float Cs[2][F_BK][LDC];
-
-  const int tid = threadIdx.x;
-  const long long S = (long long)D * H * W;
-  const long long total = S * B;
-  const int tiles_m = (Cin + BM - 1) / BM, tiles_n = (Cout + BN - 1) / BN;
-  const int tile = blockIdx.y;
-  const int tap = tile / (tiles_m * tiles_n);
-  const int rem = tile - tap * tiles_m * tiles_n;
-  const int ci0 = (rem / tiles_n) * BM, co0 = (rem % tiles_n) * BN;
-  const int kz = tap / 9, ky = (tap / 3) % 3, kx = tap % 3;
-  const long long v0 = (long long)blockIdx.x * run;
-  const long long v1 = (v0 + run < total) ? v0 + run : total;
-  if (v0 >= v1) return;
-  const int n_chunks = (int)((v1 - v0 + F_BK - 1) / F_BK);
-  const bool do_db = db != nullptr && tap == 0 && ci0 == 0;
-  const int zoff = zmode == 1 ? 1 : 0;
+                     float* __restrict__ dw, float* __restrict__ db, int D, int H, int W,
+                     int Cin, int Cout, int circular, int zmode, int nbd, int nbh, int nbw,
+                     int n_bricks, long long n_items) {
+  using namespace brick;
+  using L = DwF<TCO>;
+  constexpr int NT = L::NT, CLD = L::CLD;
+  constexpr int DBP = F_THREADS / TCO;  // ct rows summed for db a step
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_co = cdiv(Cout, TCO);
+  const long long i0 = n_items * blockIdx.x / gridDim.x;
+  const int n = (int)(n_items * (blockIdx.x + 1) / gridDim.x - i0);
+  const int zoff = zmode == 1 ? 1 : 0;  // x's planes: D, or D + 2 in zmode 1
   const int Dx = D + 2 * zoff;
+  const bool circ = circular != 0;
+  const uint32_t sbase = smem_u32(smem);
 
-  // Each thread gathers the same NX rows of every x tile; it keeps those
-  // voxels' (b, d, h, w) and steps them by F_BK from chunk to chunk.
-  long long xv[NX];
-  int xb[NX], xd[NX], xh[NX], xw[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    const int row = (tid + i * THR) / SEGX;
-    xv[i] = v0 + row;
-    const long long m = xv[i] % S;
-    xb[i] = (int)(xv[i] / S);
-    xw[i] = (int)(m % W);
-    xh[i] = (int)((m / W) % H);
-    xd[i] = (int)(m / ((long long)W * H));
-  }
-
-  // Chunks are loaded in order, so the x voxels advance inside the loader.
-  auto load_chunk = [&](int kc, int stage) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      const int v = tid + i * THR;
-      const int row = v / SEGX, seg = v % SEGX;
-      const int c = ci0 + seg * VEC;
-      const int sd = brick::in_depth(xd[i] + kz - 1 + zoff, D, Dx, circular, zmode);
-      const int sh = brick::in_plane(xh[i] + ky - 1, H, circular);
-      const int sw = brick::in_plane(xw[i] + kx - 1, W, circular);
-      const bool ok = xv[i] < v1 && c < Cin && sd >= 0 && sh >= 0 && sw >= 0;
-      const float* src =
-          ok ? x + ((((long long)xb[i] * Dx + sd) * H + sh) * W + sw) * Cin + c : x;
-      brick::cp_async16(brick::smem_u32(&Xs[stage][row][seg * VEC]), src, ok);
-      xv[i] += F_BK;
-      xw[i] += F_BK;
-      while (xw[i] >= W) {
-        xw[i] -= W;
-        if (++xh[i] == H) {
-          xh[i] = 0;
-          if (++xd[i] == D) {
-            xd[i] = 0;
-            ++xb[i];
-          }
-        }
-      }
+  auto load = [&](long long item, int st) {
+    const int tile = (int)(item / n_bricks), bi = (int)(item - (long long)tile * n_bricks);
+    const int ci0 = tile / tiles_co * F_TCI, co0 = tile % tiles_co * TCO;
+    const int bw_ = bi % nbw, bh_ = bi / nbw % nbh, bd_ = bi / (nbw * nbh) % nbd;
+    const int bb = bi / (nbw * nbh * nbd);
+    const int d0 = bd_ * BD, h0 = bh_ * BH, w0 = bw_ * BW;
+    const uint32_t xs = sbase + st * L::STAGE, cs = xs + F_XS;
+    const float* xb = x + (long long)bb * Dx * H * W * Cin;
+    for (int e = tid; e < NH * 4; e += F_THREADS) {
+      const int v = e >> 2, j = e & 3, c = ci0 + 4 * j;
+      const int hd = v / (HH * HW), hh = v / HW % HH, hw = v % HW;
+      const int sd = in_depth(d0 - 1 + hd + zoff, D, Dx, circ, zmode);
+      const int sh = in_plane(h0 - 1 + hh, H, circ);
+      const int sw = in_plane(w0 - 1 + hw, W, circ);
+      const bool ok = sd >= 0 && sh >= 0 && sw >= 0 && c < Cin;
+      cp_async16(xs + (v * F_XLD + 4 * j) * 4,
+                 ok ? xb + (((long long)sd * H + sh) * W + sw) * Cin + c : x, ok);
     }
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int v = tid + i * THR;
-      const int row = v / SEGC, seg = v % SEGC;
-      const int c = co0 + seg * VEC;
-      const long long vv = v0 + (long long)kc * F_BK + row;
-      const bool ok = vv < v1 && c < Cout;
-      const float* src = ok ? ct + vv * Cout + c : ct;
-      brick::cp_async16(brick::smem_u32(&Cs[stage][row][seg * VEC]), src, ok);
+    const float* cb = ct + (long long)bb * D * H * W * Cout;
+    for (int e = tid; e < M * (TCO / 4); e += F_THREADS) {
+      const int m = e / (TCO / 4), j = e % (TCO / 4), c = co0 + 4 * j;
+      const int d = d0 + m / (BH * BW), h = h0 + m / BW % BH, w = w0 + m % BW;
+      const bool ok = d < D && h < H && w < W && c < Cout;
+      cp_async16(cs + (m * CLD + 4 * j) * 4,
+                 ok ? cb + (((long long)d * H + h) * W + w) * Cout + c : ct, ok);
     }
   };
 
+  const int kz = warp / 3, ky = warp % 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int db_col = tid % TCO, db_row = tid / TCO;
   float db_acc = 0.f;
-  constexpr int TNT = BN / 4;
-  const int tn = tid % TNT, tm = tid / TNT;
-  float acc[4][4];
+  float acc[3][NT][4], sum[3][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][j][e] = sum[k][j][e] = 0.f;
 
-  load_chunk(0, 0);
-  brick::cp_async_commit();
-  for (int kc = 0; kc < n_chunks; ++kc) {
-    const int st = kc & 1;
-    if (kc + 1 < n_chunks) load_chunk(kc + 1, st ^ 1);
-    brick::cp_async_commit();
-    brick::cp_async_wait<1>();
+  load(i0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n) load(i0 + it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < F_BK; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&Xs[st][k][tm * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Cs[st][k][tn * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+    const int tile = (int)((i0 + it) / n_bricks);
+    const int ci0 = tile / tiles_co * F_TCI, co0 = tile % tiles_co * TCO;
+    const int bi = (int)(i0 + it - (long long)tile * n_bricks);
+    const int d_in = D - bi / (nbw * nbh) % nbd * BD, h_in = H - bi / nbw % nbh * BH;
+    const float* xs = reinterpret_cast<const float*>(smem + st * L::STAGE);
+    const float* cs = reinterpret_cast<const float*>(smem + st * L::STAGE + F_XS);
+#pragma unroll 2
+    for (int ks = 0; ks < M / 8; ++ks) {  // brick row (d, h) = (ks / 8, ks % 8)
+      if (ks / 8 >= d_in || ks % 8 >= h_in) continue;  // past the grid: ct rows of zeros
+      // B: ct of voxels t4 and t4 + 4 of the row, co pairs (2g, 2g + 1)
+      uint32_t bfr[NT][4];
+      const float* c0 = cs + (ks * 8 + t4) * CLD + 2 * g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int p = 0; p < NT / 2; ++p) {
+        const float2 u = *reinterpret_cast<const float2*>(c0 + 16 * p);
+        const float2 v = *reinterpret_cast<const float2*>(c0 + 4 * CLD + 16 * p);
+        split_tf32(u.x, bfr[2 * p][0], bfr[2 * p][2]);
+        split_tf32(v.x, bfr[2 * p][1], bfr[2 * p][3]);
+        split_tf32(u.y, bfr[2 * p + 1][0], bfr[2 * p + 1][2]);
+        split_tf32(v.y, bfr[2 * p + 1][1], bfr[2 * p + 1][3]);
+      }
+      const float* x0 = xs + (halo_index(ks / 8 + kz, ks % 8 + ky, 0) + t4) * F_XLD + 2 * g;
+      // A of tap kx: x of halo voxels t4 + kx and t4 + kx + 4, ci pairs
+      // (2g, 2g + 1)
+      uint32_t ah[3][4], al[3][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int kx = 0; kx < 3; ++kx) {
+        const float2 u = *reinterpret_cast<const float2*>(x0 + kx * F_XLD);
+        const float2 v = *reinterpret_cast<const float2*>(x0 + (kx + 4) * F_XLD);
+        split_tf32(u.x, ah[kx][0], al[kx][0]);
+        split_tf32(u.y, ah[kx][1], al[kx][1]);
+        split_tf32(v.x, ah[kx][2], al[kx][2]);
+        split_tf32(v.y, ah[kx][3], al[kx][3]);
+      }
+      // one pass a term (lo hi, hi lo, hi hi: the small ones first), so
+      // that the 3 x NT MMAs in a row go to independent accumulators
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_tf32(acc[kx][j], t == 0 ? al[kx] : ah[kx], bfr[j][t == 1 ? 2 : 0],
+                     bfr[j][t == 1 ? 3 : 1]);
     }
-    if (do_db && tid < BN) {
-#pragma unroll 8
-      for (int k = 0; k < F_BK; ++k) db_acc += Cs[st][k][tid];
+    if (db != nullptr && ci0 == 0) {
+      for (int m = db_row; m < M; m += DBP) db_acc += cs[m * CLD + db_col];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum[k][j][e] += acc[k][j][e];
+          acc[k][j][e] = 0.f;
+        }
+    if (it == n - 1 || (i0 + it + 1) / n_bricks != tile) {
+      // the tile's share of this run goes out. C fragment e: row g + 8 (e /
+      // 2) (ci 2g + e / 2), column 2 t4 + e % 2 of n8 tile j (co 16 (j / 2)
+      // + 4 t4 + 2 (e % 2) + j % 2)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int tap = (kz * 3 + ky) * 3 + k;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = ci0 + 2 * g + (e >> 1);
+            const int co = co0 + 16 * (j >> 1) + 4 * t4 + 2 * (e & 1) + (j & 1);
+            if (ci < Cin && co < Cout)
+              atomicAdd(&dw[((long long)tap * Cin + ci) * Cout + co], sum[k][j][e]);
+            sum[k][j][e] = 0.f;
+          }
+      }
+      if (db != nullptr && ci0 == 0) {
+        if (co0 + db_col < Cout) atomicAdd(&db[co0 + db_col], db_acc);
+        db_acc = 0.f;
+      }
     }
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = ci0 + tm * 4 + i, n = co0 + tn * 4 + j;
-      if (m < Cin && n < Cout) atomicAdd(&dw[((long long)tap * Cin + m) * Cout + n], acc[i][j]);
-    }
-
-  if (do_db && tid < BN && co0 + tid < Cout) atomicAdd(&db[co0 + tid], db_acc);
 }
 
-// f32: blocks aimed at per launch, enough to fill the card's SMs several
-// times over, few enough that a run stays long against its atomics.
-constexpr int F_TARGET_BLOCKS = 2048;
-constexpr int F_MIN_CHUNKS_PER_RUN = 8;
-
-// The launch plan: {kind (1 = bricks, 0 = runs of voxels), tile d, h, w
-// (kind 0: 0, 0, voxels a run), ci per CTA, co per CTA, splits (kind 1: of
-// the queue of (tile, brick) items into one run per CTA, as many as the card
-// has SMs; kind 0: of the voxels per tile), grid x, grid y, threads, dynamic
-// shared-memory bytes}.
+// The launch plan: {kind (1 = bricks), tile d, h, w, ci per CTA, co per
+// CTA, splits (of the queue of (tile, brick) items into one run per CTA, as
+// many as the card has SMs), grid x, grid y, threads, dynamic shared-memory
+// bytes}.
 constexpr int PLAN_LEN = 11;
 
 void make_plan(int dtype, int B, int D, int H, int W, int Cin, int Cout, int sms, int* p) {
@@ -394,18 +438,13 @@ void make_plan(int dtype, int B, int D, int H, int W, int Cin, int Cout, int sms
                              THREADS, SMEM};
     for (int i = 0; i < PLAN_LEN; ++i) p[i] = v[i];
   } else {
-    const int bm = Cin >= 64 ? 64 : 32, bn = Cout >= 64 ? 64 : 32;
-    const long long total = (long long)B * D * H * W;
-    const long long chunks = (total + F_BK - 1) / F_BK;
-    const int tiles = 27 * ((Cin + bm - 1) / bm) * ((Cout + bn - 1) / bn);
-    long long splits = (F_TARGET_BLOCKS + tiles - 1) / tiles;
-    const long long most = chunks / F_MIN_CHUNKS_PER_RUN;
-    if (splits > most) splits = most;
-    if (splits < 1) splits = 1;
-    const long long run = ((chunks + splits - 1) / splits) * F_BK;
-    splits = (total + run - 1) / run;
-    const int v[PLAN_LEN] = {0, 0, 0, (int)run, bm, bn, (int)splits, (int)splits, tiles,
-                             (bm / 4) * (bn / 4), 0};
+    const int tco = f32_co_tile(Cout);
+    const long long items = (long long)B * brick::cdiv(D, brick::BD) *
+                            brick::cdiv(H, brick::BH) * brick::cdiv(W, brick::BW) *
+                            brick::cdiv(Cin, F_TCI) * brick::cdiv(Cout, tco);
+    const int ctas = items < sms ? (int)items : sms;
+    const int v[PLAN_LEN] = {1, brick::BD, brick::BH, brick::BW, F_TCI, tco, ctas, ctas, 1,
+                             F_THREADS, tco == 32 ? DwF<32>::SMEM : DwF<16>::SMEM};
     for (int i = 0; i < PLAN_LEN; ++i) p[i] = v[i];
   }
 }
@@ -418,12 +457,20 @@ int sm_count() {
   return sms;
 }
 
-template <int BM, int BN>
-void launch_f32(const int* p, const void* x, const void* ct, float* dw, float* db, int B, int D,
-                int H, int W, int Cin, int Cout, int circular, int zmode, cudaStream_t st) {
-  conv3d_dw_f32_kernel<BM, BN><<<dim3((unsigned)p[7], (unsigned)p[8]), p[9], 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(ct), dw, db, B, D, H, W, Cin, Cout,
-      circular, zmode, (long long)p[3]);
+template <int TCO>
+int launch_f32(const int* p, const void* x, const void* ct, float* dw, float* db, int B, int D,
+               int H, int W, int Cin, int Cout, int circular, int zmode, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv3d_dw_f32_kernel<TCO>, cudaFuncAttributeMaxDynamicSharedMemorySize, DwF<TCO>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int nbd = brick::cdiv(D, brick::BD), nbh = brick::cdiv(H, brick::BH),
+            nbw = brick::cdiv(W, brick::BW);
+  const int nb = B * nbd * nbh * nbw;
+  conv3d_dw_f32_kernel<TCO><<<(unsigned)p[7], F_THREADS, DwF<TCO>::SMEM, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(ct), dw, db, D, H, W, Cin, Cout,
+      circular, zmode, nbd, nbh, nbw, nb,
+      (long long)nb * brick::cdiv(Cin, F_TCI) * brick::cdiv(Cout, TCO));
+  return 0;
 }
 
 }  // namespace
@@ -462,14 +509,11 @@ extern "C" int conv3d_k3s1_dw(int dtype, const void* x, const void* ct, float* d
         circular, zmode, brick::cdiv(D, brick::BD), brick::cdiv(H, brick::BH),
         brick::cdiv(W, brick::BW), nb,
         (long long)nb * brick::cdiv(Cin, TC) * brick::cdiv(Cout, TC));
-  } else if (p[4] == 64 && p[5] == 64) {
-    launch_f32<64, 64>(p, x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
-  } else if (p[4] == 64) {
-    launch_f32<64, 32>(p, x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
-  } else if (p[5] == 64) {
-    launch_f32<32, 64>(p, x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
   } else {
-    launch_f32<32, 32>(p, x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
+    const int err = p[5] == 32
+                        ? launch_f32<32>(p, x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st)
+                        : launch_f32<16>(p, x, ct, dw, db, B, D, H, W, Cin, Cout, circular, zmode, st);
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }

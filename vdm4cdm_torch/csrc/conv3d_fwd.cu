@@ -46,10 +46,36 @@
 // Each input byte crosses L2 about 2.3 times (the halo) per Cout tile,
 // instead of 27 times.
 //
-// The f32 path (conv3d_k3s1_f32_kernel) serves the parity checks only (the
-// main path runs bf16): the earlier implicit GEMM on plain FMAs, so that its
-// products stay in full f32.
-//
+// Design of the f32 path (conv3d_k3s1_f32_kernel), the forward and dx pass
+// of the trained model (VDM_GRF_c_c_32: chs 16-64, f32). The same bricks, on
+// the TF32 tensor cores with the 3xTF32 split of conv3d_brick.cuh: f = hi +
+// lo, a product lo hi + hi lo + hi hi in f32, its error about 2^-21 (one TF32
+// pass, 2^-11, would miss the parity checks' 1e-4). Bound: 3 x 2 x 27 Cin
+// Cout operations a voxel at 495 TFLOP/s (7.4 times the 67 TFLOP/s of the
+// FMA units), 0.92 ms for the 151.8 GFLOP of one blessed forward at (12,
+// 32^3) against 2.27 ms on FMAs.
+//   - a CTA is a brick x BN output channels, BN = 64, 48 or 32 where it
+//     divides Cout, else 16: no thrown-away columns at Cout = 16 or 48; one
+//     warpgroup, warp w the 64 voxels of brick plane w;
+//   - per 8-channel chunk the haloed input comes in with cp.async (the next
+//     chunk in flight under this one's 27 taps), is split once into hi and
+//     lo in shared memory, and every tap reads it by ldmatrix.x4 at shifted
+//     row addresses (one x4 gives a row's hi and lo fragments; the ten halo
+//     rows of one (kz, kx) serve its three ky taps);
+//   - the products are wgmma m64nBNk8.tf32, A from the four warps'
+//     registers (the shifted gather rules out a descriptor for it), B, the
+//     weights, from shared memory: split once a call
+//     (conv3d_k3s1_f32_wsplit_kernel) and streamed three taps at a time,
+//     three steps deep. (mma.sync m16n8k8 ran at about 150 TFLOP/s TF32 on
+//     the H100 even with its shared-memory loads taken out.)
+//   - where bricks x Cout tiles give fewer CTAs than the card has SMs (the
+//     8^3 and 4^3 levels, 16^3 at small batches; Cout <= 1024), the K steps
+//     (8-channel chunk x (kz, kx)) are split over CTAs; a second kernel adds
+//     their partial sums in split order, then bias, residual and the sums:
+//     y is the same bit for bit from run to run.
+// A call launches two kernels (the weight split and the conv), three where
+// K is split; ops/kernels/conv3d.py counts them beside the calls.
+
 // The optional residual (same shape as the output) is added in f32 before the
 // cast and before the sums. It carries the second half of a split pair conv
 // (conv(concat(a, b), W) = conv(a, W_a) + conv(b, W_b)) and the ResBlock's
@@ -401,189 +427,522 @@ int launch_bf16(const void* x, const void* wt, const float* bias, const void* re
 
 // ----------------------------------------------------------------- f32 path
 
-constexpr int F_BM = 128, F_BK = 16, F_VEC = 4, F_THREADS = 256;
+constexpr int F_KC = 8;                      // input channels a chunk: one k8 step
+constexpr int F_RAW = brick::NH * F_KC * 4;  // the chunk as copied in (32-byte rows)
+constexpr int F_HL = brick::NH * F_KC * 8;   // its hi and lo parts (64-byte rows)
+constexpr int F_WSTAGES = 3;                 // steps of weights in shared memory
 
-template <int FBN>
-__global__ void __launch_bounds__(F_THREADS)
-conv3d_k3s1_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+// Output channels a CTA: a tile that divides Cout where one of 64, 48, 32
+// does, else 16 (the columns past Cout masked).
+__host__ __device__ constexpr int f32_bn(int Cout) {
+  return Cout % 64 == 0 ? 64 : (Cout % 48 == 0 ? 48 : (Cout % 32 == 0 ? 32 : 16));
+}
+
+// wgmma (sm_90a) m64nNk8, TF32: A (64 voxels x 8 channels) from the four
+// warps' registers (warp w rows 16w .. 16w + 15, the mma.sync m16n8k8 A
+// fragment layout), B (N x 8 weights, K-major) from shared memory through a
+// descriptor, f32 accumulators in the mma.sync C fragment layout (N / 2 a
+// thread).
+template <int N>
+__device__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<48>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// A CTA of BN output channels: one warpgroup, warp w the 64 voxels of brick
+// plane w (4 m16 tiles) x BN. Shared memory: the raw chunk, its hi / lo
+// split (a voxel's row: hi of channels 0-3, 4-7, lo of 0-3, 4-7,
+// swizzled), F_WSTAGES steps of weights, the row-offset table and the
+// CTA's column sums. A step is the three ky taps of one (kz, kx), a tap its
+// hi, then its lo weights, each BN x 8 in wgmma's canonical K-major layout.
+template <int BN> struct F32 {
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int NT = BN / 8;
+  static constexpr int WBLK = BN * 32;  // one tap's hi or lo weights
+  static constexpr int WTAP = 2 * WBLK;
+  static constexpr int WSTEP = 3 * WTAP;
+  static constexpr int HL = F_RAW;
+  static constexpr int WB = HL + F_HL;
+  static constexpr int OFF = WB + F_WSTAGES * WSTEP;
+  static constexpr int SUM = OFF + brick::NH * 4;
+  static constexpr int SMEM = SUM + 2 * BN * 4;
+  static constexpr int MINB = BN == 16 ? 3 : 2;  // CTAs an SM
+  static_assert(NT * 8 == BN, "whole n8 tiles");
+  static_assert(MINB * (SMEM + 1024) <= 233472, "CTAs an SM fit its shared memory");
+};
+
+// The weights (27, Cout, Cin) split once a call into ws (27, Cout, Cin / 8,
+// 16): for each 8-channel chunk its hi parts, then its lo parts.
+__global__ void conv3d_k3s1_f32_wsplit_kernel(const float* __restrict__ wt,
+                                              float* __restrict__ ws, int n, int Cin) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int ci = i % Cin;
+  uint32_t hi, lo;
+  brick::split_tf32(wt[i], hi, lo);
+  const long long o = ((long long)(i / Cin) * (Cin / F_KC) + ci / F_KC) * 16 + ci % F_KC;
+  ws[o] = __uint_as_float(hi);
+  ws[o + 8] = __uint_as_float(lo);
+}
+
+// The conv over steps [s0, s1) of this CTA's K split (a step is one 8-channel
+// chunk against one (kz, kx): its three ky taps). With one split the
+// epilogue adds bias and residual and takes the sums; with more, the CTA
+// writes its partial sums to part[split] for conv3d_k3s1_f32_reduce_kernel.
+template <int BN>
+__global__ void __launch_bounds__(F32<BN>::THREADS, F32<BN>::MINB)
+conv3d_k3s1_f32_kernel(const float* __restrict__ x, const float* __restrict__ ws,
                        const float* __restrict__ bias, const float* __restrict__ res,
-                       float* __restrict__ out, float* __restrict__ sums, int D, int H, int W,
-                       int Cin, int Cout, int circular, int zmode) {
-  constexpr int LD = F_BK + F_VEC;
-  static_assert(F_BK / F_VEC == 4, "four 16-byte vectors per tile row");
-  __shared__ __align__(16) float As[2][F_BM][LD];
-  __shared__ __align__(16) float Bs[2][FBN][LD];
-  __shared__ float s_sum[2][FBN];
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const long long S = (long long)D * H * W;
-  const long long m0 = (long long)blockIdx.x * F_BM;
-  const int n0 = blockIdx.y * FBN;
+                       float* __restrict__ out, float* __restrict__ part,
+                       float* __restrict__ sums, int D, int H, int W, int Cin, int Cout,
+                       int circular, int zmode, int nbh, int nbw, int ntiles, int ksplit) {
+  using namespace brick;
+  using L = F32<BN>;
+  constexpr int NT = L::NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const int split = blockIdx.x % ksplit, rest = blockIdx.x / ksplit;
+  const int tile = rest % ntiles, br = rest / ntiles;
+  const int d0 = br / (nbw * nbh) * BD, h0 = (br / nbw) % nbh * BH, w0 = br % nbw * BW;
+  const int n0 = tile * BN;
   const int zoff = zmode == 1 ? 1 : (zmode == 2 ? -1 : 0);
   const int Din = D + 2 * zoff;
+  const bool circ = circular != 0;
   const float* xb = x + (long long)b * Din * H * W * Cin;
-  const long long obase = (long long)b * S * Cout;
+  int* s_off = reinterpret_cast<int*>(smem + L::OFF);
+  float* s_sum = reinterpret_cast<float*>(smem + L::SUM);
+  const uint32_t sbase = smem_u32(smem);
+  const int nck = Cin / F_KC;
+  const int n_steps = 9 * nck;
+  const int s0 = n_steps * split / ksplit, s1 = n_steps * (split + 1) / ksplit;
 
-  for (int i = tid; i < 2 * FBN; i += F_THREADS) (&s_sum[0][0])[i] = 0.f;
-
-  // Each thread gathers two 16-byte vectors of every A tile: rows v / 4,
-  // channel segment v % 4, for v = tid and tid + F_THREADS.
-  int a_row[2], a_seg[2], a_d[2], a_h[2], a_w[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = tid + i * F_THREADS;
-    a_row[i] = v >> 2;
-    a_seg[i] = v & 3;
-    const long long m = m0 + a_row[i];
-    a_ok[i] = m < S;
-    const long long mm = a_ok[i] ? m : 0;
-    a_w[i] = (int)(mm % W);
-    a_h[i] = (int)((mm / W) % H);
-    a_d[i] = (int)(mm / ((long long)W * H));
+  for (int v = tid; v < NH; v += L::THREADS) {
+    const int hd = v / (HH * HW), hh = v / HW % HH, hw = v % HW;
+    const int sd = in_depth(d0 - 1 + hd + zoff, D, Din, circ, zmode);
+    const int sh = in_plane(h0 - 1 + hh, H, circ);
+    const int sw = in_plane(w0 - 1 + hw, W, circ);
+    s_off[v] = (sd < 0 || sh < 0 || sw < 0) ? -1 : (sd * H + sh) * W + sw;
   }
+  if (tid < 2 * BN) s_sum[tid] = 0.f;
+  __syncthreads();
 
-  const int n_cc = (Cin + F_BK - 1) / F_BK;
-  const int n_chunks = 27 * n_cc;
-
-  auto load_chunk = [&](int kc, int stage) {
-    const int tap = kc / n_cc;
-    const int c0 = (kc - tap * n_cc) * F_BK;
-    const int kz = tap / 9, ky = (tap / 3) % 3, kx = tap % 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = c0 + a_seg[i] * F_VEC;
-      const int sd = brick::in_depth(a_d[i] + kz - 1 + zoff, D, Din, circular, zmode);
-      const int sh = brick::in_plane(a_h[i] + ky - 1, H, circular);
-      const int sw = brick::in_plane(a_w[i] + kx - 1, W, circular);
-      const bool ok = a_ok[i] && c < Cin && sd >= 0 && sh >= 0 && sw >= 0;
-      const float* src = ok ? xb + (((long long)sd * H + sh) * W + sw) * Cin + c : x;
-      brick::cp_async16(brick::smem_u32(&As[stage][a_row[i]][a_seg[i] * F_VEC]), src, ok);
+  // chunk c of the haloed brick, as it is, into the raw buffer
+  auto load_x = [&](int c) {
+    for (int e = tid; e < NH * 2; e += L::THREADS) {
+      const int off = s_off[e >> 1];
+      const bool ok = off >= 0;
+      cp_async16(sbase + e * 16, ok ? xb + (long long)off * Cin + c * F_KC + 4 * (e & 1) : x, ok);
     }
-    for (int v = tid; v < FBN * 4; v += F_THREADS) {
-      const int n = v >> 2, seg = v & 3;
-      const int c = c0 + seg * F_VEC;
-      const bool ok = (n0 + n) < Cout && c < Cin;
-      const float* src = ok ? wt + ((long long)tap * Cout + n0 + n) * Cin + c : wt;
-      brick::cp_async16(brick::smem_u32(&Bs[stage][n][seg * F_VEC]), src, ok);
+  };
+  // the split weights of step s's three taps into weight stage buf
+  auto load_w = [&](int s, int buf) {
+    const int c = s / 9, kz = s % 9 / 3, kx = s % 3;
+    const uint32_t wsb = sbase + L::WB + buf * L::WSTEP;
+    for (int e = tid; e < 3 * BN * 4; e += L::THREADS) {
+      const int ky = e / (BN * 4), n = e / 4 % BN, j = e & 3;
+      const bool ok = n0 + n < Cout;
+      const long long row = (long long)((kz * 3 + ky) * 3 + kx) * Cout + n0 + n;
+      const float* src = ok ? ws + (row * nck + c) * 16 + 4 * j : ws;
+      // vector j: hi (j < 2) or lo of channels 4 (j % 2) ..; core matrices
+      // of 8 rows x 16 bytes, the next in K 128 bytes on, the next 8 rows 256
+      cp_async16(wsb + ky * L::WTAP + (j >> 1) * L::WBLK + ((n >> 3) * 2 + (j & 1)) * 128 +
+                     (n & 7) * 16,
+                 src, ok);
+    }
+  };
+  // the raw chunk split once into hi and lo, for all 27 taps
+  auto split_x = [&]() {
+    for (int e = tid; e < NH * 2; e += L::THREADS) {
+      const int v = e >> 1, j = e & 1;
+      const float4 f = *reinterpret_cast<const float4*>(smem + e * 16);
+      uint32_t hi[4], lo[4];
+      split_tf32(f.x, hi[0], lo[0]);
+      split_tf32(f.y, hi[1], lo[1]);
+      split_tf32(f.z, hi[2], lo[2]);
+      split_tf32(f.w, hi[3], lo[3]);
+      *reinterpret_cast<uint4*>(smem + L::HL + swz<4>(v, j)) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(smem + L::HL + swz<4>(v, j + 2)) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   };
 
-  // each thread a TM x 4 register tile (rows and columns strided so that a
-  // warp's shared-memory reads broadcast)
-  constexpr int TNT = FBN / 4, TMT = F_THREADS / TNT, TM = F_BM / TMT;
-  const int tn = tid % TNT, tm = tid / TNT;
-  float acc[TM][4];
+  // ldmatrix rows: lane l addresses row l % 8 of matrix l / 8, and a voxel's
+  // four vectors are the four matrices, so one x4 gives the A fragment's hi
+  // and lo parts: a row's hi of channels t4, t4 + 4 and lo of the same.
+  const int q = lane >> 3, r = lane & 7;
+  float acc[4][NT][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  load_chunk(0, 0);
-  brick::cp_async_commit();
-  for (int kc = 0; kc < n_chunks; ++kc) {
-    const int st = kc & 1;
-    if (kc + 1 < n_chunks) load_chunk(kc + 1, st ^ 1);
-    brick::cp_async_commit();
-    brick::cp_async_wait<1>();
+  // Groups: {x chunk, w(s0)}, {w(s0 + 1)}, then one a step: {w(s + 2)} and,
+  // at a chunk's first step, the next chunk. A step waits for all but the
+  // newest group: the weights have two steps to land, and so has a chunk
+  // issued at a chunk's first step, nine steps before it is split. A chunk
+  // issued at step s0 is split at s0 + 1 where the split starts on a chunk's
+  // last step (s0 % 9 == 8), while it is still the newest group: that step
+  // waits for every group.
+  load_x(s0 / 9);
+  load_w(s0, 0);
+  cp_async_commit();
+  if (s0 + 1 < s1) load_w(s0 + 1, 1);
+  cp_async_commit();
+  for (int s = s0; s < s1; ++s) {
+    const int it = s - s0;
+    const bool fresh = it == 0 || s % 9 == 0;  // a chunk to split
+    if (it == 1 && fresh)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
+    fence_proxy_async();
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < F_BK; ++k) {
-      float a[TM], bv[4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[st][tm + i * TMT][k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[st][tn + j * TNT][k];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    if (fresh) {
+      split_x();
+      __syncthreads();
+      const int c1 = s / 9 + 1;
+      if (c1 * 9 < s1) load_x(c1);
     }
-    __syncthreads();
-  }
-
+    if (s + 2 < s1) load_w(s + 2, (it + 2) % F_WSTAGES);
+    cp_async_commit();
+    const int kz = s % 9 / 3, kx = s % 3;
+    const uint32_t wsb = sbase + L::WB + it % F_WSTAGES * L::WSTEP;
+    // The 10 halo rows (warp + kz, 0 .. 9) of columns kx .. kx + 7, loaded
+    // once for the three ky taps: m16 tile i under tap ky is halo rows
+    // 2i + ky (its rows 0-7) and 2i + ky + 1 (rows 8-15).
+    // The four warps' fragments of m16 tile i make one m64 operand (tile i
+    // under tap ky: halo rows 2i + ky, 2i + ky + 1). Three wgmma a tile and
+    // tap into its accumulators, the small terms first: lo A hi B, hi A lo
+    // B, hi A hi B (36 a step), waited for before the next step loads new
+    // rows into hr.
+    uint32_t hr[10][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int lc = tn + j * TNT, col = n0 + lc;
-    float s1 = 0.f, s2 = 0.f;
+    for (int h = 0; h < 10; ++h)
+      ldsm_x4(hr[h], sbase + L::HL + swz<4>(halo_index(warp + kz, h, r + kx), q));
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const long long m = m0 + tm + i * TMT;
-      if (m >= S || col >= Cout) continue;
-      const long long o = obase + m * Cout + col;
-      float v = acc[i][j];
-      if (bias) v += bias[col];
-      if (res) v += res[o];
-      out[o] = v;
-      s1 += v;
-      s2 += v * v;
-    }
-    if (sums) {
-      atomicAdd(&s_sum[0][lc], s1);
-      atomicAdd(&s_sum[1][lc], s2);
-    }
-  }
-
-  if (sums) {
-    __syncthreads();
-    for (int i = tid; i < FBN; i += F_THREADS) {
-      if (n0 + i < Cout) {
-        atomicAdd(&sums[((long long)b * 2 + 0) * Cout + n0 + i], s_sum[0][i]);
-        atomicAdd(&sums[((long long)b * 2 + 1) * Cout + n0 + i], s_sum[1][i]);
+    for (int ky = 0; ky < 3; ++ky) {
+      const uint32_t wt0 = wsb + ky * L::WTAP;
+      const uint64_t d0 = smem_desc(wt0, 128, 256, 0);            // hi
+      const uint64_t d1 = smem_desc(wt0 + L::WBLK, 128, 256, 0);  // lo
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t* u = hr[2 * i + ky];
+        const uint32_t* v = hr[2 * i + ky + 1];
+        const uint32_t ah[4] = {u[0], v[0], u[1], v[1]};
+        const uint32_t al[4] = {u[2], v[2], u[3], v[3]};
+        wgmma_tf32<BN>(&acc[i][0][0], al, d0);
+        wgmma_tf32<BN>(&acc[i][0][0], ah, d1);
+        wgmma_tf32<BN>(&acc[i][0][0], ah, d0);
       }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  // ---- epilogue, from the C fragments: rows g, g + 8 of m16 tile i are
+  // brick rows 2i, 2i + 1 of plane warp at w = g, columns 2 t4, 2 t4 + 1 of
+  // n8 tile j; 8-byte stores, 32-byte sectors filled
+  const int g = lane >> 2, t4 = lane & 3;
+  const int d = d0 + warp;
+  const long long S = (long long)D * H * W;
+  if (ksplit > 1) {
+    float* pb = part + ((long long)split * gridDim.y + b) * S * Cout;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int h = h0 + 2 * i + hh, w = w0 + g;
+        if (d >= D || h >= H || w >= W) continue;
+        const long long o = ((long long)(d * H + h) * W + w) * Cout;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = n0 + 8 * j + 2 * t4;
+          if (col < Cout)
+            *reinterpret_cast<float2*>(pb + o + col) =
+                make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+        }
+      }
+    return;
+  }
+  float bv[NT][2], q1[NT][2], q2[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int col = n0 + 8 * j + 2 * t4 + k;
+      bv[j][k] = (bias && col < Cout) ? bias[col] : 0.f;
+      q1[j][k] = q2[j][k] = 0.f;
+    }
+  float* ob = out + (long long)b * S * Cout;
+  const float* rb = res ? res + (long long)b * S * Cout : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int h = h0 + 2 * i + hh, w = w0 + g;
+      if (d >= D || h >= H || w >= W) continue;
+      const long long o = ((long long)(d * H + h) * W + w) * Cout;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + 8 * j + 2 * t4;
+        if (col >= Cout) continue;
+        float v0 = acc[i][j][2 * hh] + bv[j][0], v1 = acc[i][j][2 * hh + 1] + bv[j][1];
+        if (rb) {
+          const float2 rv = *reinterpret_cast<const float2*>(rb + o + col);
+          v0 += rv.x;
+          v1 += rv.y;
+        }
+        *reinterpret_cast<float2*>(ob + o + col) = make_float2(v0, v1);
+        q1[j][0] += v0;
+        q2[j][0] += v0 * v0;
+        q1[j][1] += v1;
+        q2[j][1] += v1 * v1;
+      }
+    }
+  if (sums) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          q1[j][k] += __shfl_xor_sync(0xffffffffu, q1[j][k], off);
+          q2[j][k] += __shfl_xor_sync(0xffffffffu, q2[j][k], off);
+        }
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int cl = 8 * j + 2 * t4 + k;
+          atomicAdd(&s_sum[cl], q1[j][k]);
+          atomicAdd(&s_sum[BN + cl], q2[j][k]);
+        }
+    }
+    __syncthreads();
+    if (tid < BN && n0 + tid < Cout) {
+      atomicAdd(&sums[((long long)b * 2 + 0) * Cout + n0 + tid], s_sum[tid]);
+      atomicAdd(&sums[((long long)b * 2 + 1) * Cout + n0 + tid], s_sum[BN + tid]);
     }
   }
 }
 
-// The launch plan: {kind (1 = bricks, 0 = runs of the flattened voxels),
-// tile d, h, w (kind 0: 0, 0, run length), output channels per CTA, grid x,
-// y, z, threads, dynamic shared-memory bytes}.
-constexpr int PLAN_LEN = 10;
+// The K splits' partial sums added in split order (so y is the same bit for
+// bit from run to run), then bias and residual, the output and its sums. A
+// thread takes one 4-channel group of every (R_THREADS / (Cout / 4))-th
+// voxel of the CTA's R_VOX, so Cout is at most R_MAX_COUT (make_plan splits
+// K only there).
+constexpr int R_THREADS = 256, R_VOX = 64, R_MAX_COUT = 4 * R_THREADS;
 
-void make_plan(int dtype, int B, int D, int H, int W, int Cout, int* p) {
+__global__ void __launch_bounds__(R_THREADS)
+conv3d_k3s1_f32_reduce_kernel(const float* __restrict__ part, const float* __restrict__ bias,
+                              const float* __restrict__ res, float* __restrict__ out,
+                              float* __restrict__ sums, long long S, int Cout, int ksplit) {
+  extern __shared__ float r_sum[];  // 2 * Cout
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int CG = Cout / 4, lanes = R_THREADS / CG;
+  const int cg = tid % CG, vi = tid / CG;
+  for (int i = tid; i < 2 * Cout; i += R_THREADS) r_sum[i] = 0.f;
+  __syncthreads();
+  const long long pstride = (long long)gridDim.y * S * Cout;
+  const long long v0 = (long long)blockIdx.x * R_VOX;
+  const long long v1 = v0 + R_VOX < S ? v0 + R_VOX : S;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  if (vi < lanes) {
+    const float4 bv = bias ? *reinterpret_cast<const float4*>(bias + 4 * cg)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (long long v = v0 + vi; v < v1; v += lanes) {
+      const long long o = ((long long)b * S + v) * Cout + 4 * cg;
+      float4 a = *reinterpret_cast<const float4*>(part + o);
+      for (int k = 1; k < ksplit; ++k) {
+        const float4 p = *reinterpret_cast<const float4*>(part + k * pstride + o);
+        a.x += p.x;
+        a.y += p.y;
+        a.z += p.z;
+        a.w += p.w;
+      }
+      float y[4] = {a.x + bv.x, a.y + bv.y, a.z + bv.z, a.w + bv.w};
+      if (res) {
+        const float4 rv = *reinterpret_cast<const float4*>(res + o);
+        y[0] += rv.x;
+        y[1] += rv.y;
+        y[2] += rv.z;
+        y[3] += rv.w;
+      }
+      *reinterpret_cast<float4*>(out + o) = make_float4(y[0], y[1], y[2], y[3]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s1[k] += y[k];
+        s2[k] += y[k] * y[k];
+      }
+    }
+  }
+  if (sums) {
+    if (vi < lanes) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        atomicAdd(&r_sum[4 * cg + k], s1[k]);
+        atomicAdd(&r_sum[Cout + 4 * cg + k], s2[k]);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < Cout; i += R_THREADS) {
+      atomicAdd(&sums[((long long)b * 2 + 0) * Cout + i], r_sum[i]);
+      atomicAdd(&sums[((long long)b * 2 + 1) * Cout + i], r_sum[Cout + i]);
+    }
+  }
+}
+
+// The launch plan: {kind (1 = bricks), tile d, h, w, output channels a CTA,
+// grid x, y, z, threads, dynamic shared-memory bytes, K splits}.
+constexpr int PLAN_LEN = 11;
+
+int f32_smem(int bn) {
+  switch (bn) {
+    case 64: return F32<64>::SMEM;
+    case 48: return F32<48>::SMEM;
+    case 32: return F32<32>::SMEM;
+    default: return F32<16>::SMEM;
+  }
+}
+
+// sms: the card's SMs, the CTAs below which the f32 path splits K.
+void make_plan(int dtype, int B, int D, int H, int W, int Cin, int Cout, int sms, int* p) {
+  const int nb = brick::cdiv(D, brick::BD) * brick::cdiv(H, brick::BH) *
+                 brick::cdiv(W, brick::BW);
   if (dtype == 1) {
-    const int nb = brick::cdiv(D, brick::BD) * brick::cdiv(H, brick::BH) *
-                   brick::cdiv(W, brick::BW);
     const int bn = Cout % 64 == 0 ? 64 : 32;  // output channels per CTA
     const int v[PLAN_LEN] = {1, brick::BD, brick::BH, brick::BW, bn,
                              nb * brick::cdiv(Cout, bn), B, 1, THREADS,
-                             bn == 64 ? Fwd<64>::SMEM : Fwd<32>::SMEM};
+                             bn == 64 ? Fwd<64>::SMEM : Fwd<32>::SMEM, 1};
     for (int i = 0; i < PLAN_LEN; ++i) p[i] = v[i];
   } else {
-    const long long S = (long long)D * H * W;
-    const int fbn = Cout <= 32 ? 32 : 64;
-    const int v[PLAN_LEN] = {0, 0, 0, F_BM, fbn, (int)((S + F_BM - 1) / F_BM),
-                             brick::cdiv(Cout, fbn), B, F_THREADS, 0};
+    // split the K steps where the output tiles leave SMs empty
+    const int bn = f32_bn(Cout);
+    const int base = nb * brick::cdiv(Cout, bn) * B;
+    const int steps = 9 * (Cin / F_KC);
+    int ks = 1;
+    if (base < sms && Cout <= R_MAX_COUT) {
+      ks = brick::cdiv(sms, base);
+      if (ks > steps) ks = steps;
+    }
+    const int v[PLAN_LEN] = {1, brick::BD, brick::BH, brick::BW, bn,
+                             nb * brick::cdiv(Cout, bn) * ks, B, 1, WARPS * 32, f32_smem(bn),
+                             ks};
     for (int i = 0; i < PLAN_LEN; ++i) p[i] = v[i];
   }
+}
+
+template <int BN>
+int launch_f32(const float* x, const float* wt, const float* bias, const float* res, float* out,
+               float* sums, float* scratch, int B, int D, int H, int W, int Cin, int Cout,
+               int circular, int zmode, const int* p, cudaStream_t st) {
+  using L = F32<BN>;
+  const int n = 27 * Cout * Cin;
+  float* ws = scratch;
+  float* part = scratch + 2 * (long long)n;
+  const int ksplit = p[10];
+  conv3d_k3s1_f32_wsplit_kernel<<<brick::cdiv(n, 256), 256, 0, st>>>(wt, ws, n, Cin);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(conv3d_k3s1_f32_kernel<BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  conv3d_k3s1_f32_kernel<BN><<<dim3((unsigned)p[5], (unsigned)p[6], (unsigned)p[7]), L::THREADS,
+                               L::SMEM, st>>>(
+      x, ws, bias, res, out, ksplit > 1 ? part : nullptr, ksplit > 1 ? nullptr : sums, D, H, W,
+      Cin, Cout, circular, zmode, brick::cdiv(H, brick::BH), brick::cdiv(W, brick::BW),
+      brick::cdiv(Cout, BN), ksplit);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ksplit == 1) return (int)e;
+  const long long S = (long long)D * H * W;
+  conv3d_k3s1_f32_reduce_kernel<<<dim3((unsigned)((S + R_VOX - 1) / R_VOX), (unsigned)B),
+                                  R_THREADS, 2 * Cout * 4, st>>>(part, bias, res, out, sums, S,
+                                                                 Cout, ksplit);
+  return (int)cudaGetLastError();
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return sms;
 }
 
 }  // namespace
 
-// The launch plan of conv3d_k3s1_fwd at these sizes (see make_plan), for
-// the check against ops/kernels/conv3d.py::fwd_plan. Returns 0.
-extern "C" int conv3d_k3s1_fwd_plan(int dtype, int B, int D, int H, int W, int Cout,
-                                    int* plan) {
-  make_plan(dtype, B, D, H, W, Cout, plan);
+// The launch plan of conv3d_k3s1_fwd at these sizes on a card of sms SMs
+// (0: the current device's; see make_plan), for the check against
+// ops/kernels/conv3d.py::fwd_plan. Returns 0.
+extern "C" int conv3d_k3s1_fwd_plan(int dtype, int B, int D, int H, int W, int Cin, int Cout,
+                                    int sms, int* plan) {
+  make_plan(dtype, B, D, H, W, Cin, Cout, sms > 0 ? sms : sm_count(), plan);
   return 0;
 }
 
 // x (B, Din, H, W, Cin) with Din = D, D + 2 or D - 2 for zmode 0, 1 or 2,
 // wt (27, Cout, Cin) in the same dtype (0 = f32, 1 = bf16), bias (Cout) f32
 // or null, res (B, D, H, W, Cout) or null, out (B, D, H, W, Cout), sums
-// (B, 2, Cout) f32 zero-filled or null. Cin and Cout are multiples of 8;
-// every pointer is 16-byte aligned. Returns cudaGetLastError() after the
-// launch.
+// (B, 2, Cout) f32 zero-filled or null. f32 also takes scratch: 54 Cout Cin
+// floats for the split weights, then, where the plan splits K into ks > 1,
+// ks B D H W Cout for the partial sums (ops/kernels/conv3d.py::
+// fwd_scratch_floats, at the same sms, the SM count the plan is made for,
+// so that the caller's scratch fits the plan); bf16 none. Cin and Cout are
+// multiples of 8; every pointer is 16-byte aligned. Returns
+// cudaGetLastError() after the launches.
 extern "C" int conv3d_k3s1_fwd(int dtype, const void* x, const void* wt, const float* bias,
-                               const void* res, void* out, float* sums, int B, int D, int H,
-                               int W, int Cin, int Cout, int circular, int zmode,
-                               void* stream) {
+                               const void* res, void* out, float* sums, float* scratch, int B,
+                               int D, int H, int W, int Cin, int Cout, int circular, int zmode,
+                               int sms, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (zmode < 0 || zmode > 2 || (zmode == 2 && D < 3)) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && (scratch == nullptr || sms <= 0)) return (int)cudaErrorInvalidValue;
   int p[PLAN_LEN];
-  make_plan(dtype, B, D, H, W, Cout, p);
+  make_plan(dtype, B, D, H, W, Cin, Cout, sms, p);
   const dim3 grid((unsigned)p[5], (unsigned)p[6], (unsigned)p[7]);
   if (dtype == 1) {
     const int err = p[4] == 64 ? launch_bf16<64>(x, wt, bias, res, out, sums, B, D, H, W, Cin,
@@ -591,17 +950,24 @@ extern "C" int conv3d_k3s1_fwd(int dtype, const void* x, const void* wt, const f
                                : launch_bf16<32>(x, wt, bias, res, out, sums, B, D, H, W, Cin,
                                                  Cout, circular, zmode, grid, st);
     if (err) return err;
-  } else {
-    const float* xf = static_cast<const float*>(x);
-    const float* wf = static_cast<const float*>(wt);
-    const float* rf = static_cast<const float*>(res);
-    float* of = static_cast<float*>(out);
-    if (p[4] == 32)
-      conv3d_k3s1_f32_kernel<32><<<grid, F_THREADS, 0, st>>>(xf, wf, bias, rf, of, sums, D, H,
-                                                             W, Cin, Cout, circular, zmode);
-    else
-      conv3d_k3s1_f32_kernel<64><<<grid, F_THREADS, 0, st>>>(xf, wf, bias, rf, of, sums, D, H,
-                                                             W, Cin, Cout, circular, zmode);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(wt);
+  const float* rf = static_cast<const float*>(res);
+  float* of = static_cast<float*>(out);
+  switch (p[4]) {
+    case 64:
+      return launch_f32<64>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
+                            zmode, p, st);
+    case 48:
+      return launch_f32<48>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
+                            zmode, p, st);
+    case 32:
+      return launch_f32<32>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
+                            zmode, p, st);
+    default:
+      return launch_f32<16>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
+                            zmode, p, st);
+  }
 }

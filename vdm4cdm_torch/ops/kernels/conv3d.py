@@ -15,8 +15,14 @@ weights beside it one kz plane of 9 taps at a time, and forms every tap
 from that one staging with ``ldmatrix`` at shifted row addresses on the
 tensor cores (``mma.sync`` at 32 output channels a CTA, ``wgmma`` with A
 from registers at 64), so each input byte crosses L2 about 2.3 times per
-Cout tile instead of 27. The f32 path (parity checks only) stays an
-implicit GEMM on FMAs. The source file says more.
+Cout tile instead of 27. The f32 path, the trained model's
+(``VDM_GRF_c_c_32``), runs the same bricks on the TF32 tensor cores with a
+3xTF32 split (each operand hi + lo, three products, f32 accuracy): Cout
+tiles of 64, 48, 32 or 16 that divide Cout, the input chunk split once in
+shared memory for all 27 taps, and, where the bricks leave SMs empty, the K
+steps split over CTAs with a second kernel adding the partials in a fixed
+order. Bound: 3 x 2 x 27 Cin Cout operations a voxel at 495 TFLOP/s. The
+source file says more.
 
 The plain version computes the same function with ``torch.nn.functional.
 conv3d`` in f32. CPU tensors go to it; CUDA tensors go to the kernel.
@@ -34,8 +40,9 @@ brick's ct and haloed x once and accumulates all 27 taps of its tile from
 them with ``wgmma`` (registers, flushed into f32 running sums in shared
 memory every 4 bricks), and adds a tile's sums to the output with atomics
 where its run leaves that tile (the sum order is run-dependent). Its f32
-path stays a block per tap on FMAs. Its plain version is 27 shifted matrix
-products in f32.
+path walks the same queue (16 ci x 32 or 16 co tiles) with ``mma.sync`` in
+3xTF32 on 9 warps, each holding the three kx taps of one (kz, ky). Its
+plain version is 27 shifted matrix products in f32.
 
 :func:`fwd_plan` and :func:`dw_plan` are the kernels' launch plans (tile,
 grid, threads, shared memory, the dw split), computed here by the same rules
@@ -59,6 +66,7 @@ haloed input and the 27 shifted products with no z pad.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -147,9 +155,10 @@ def conv3d_k3s1_dw_plain(x, ct, circular=False):
 
 # ------------------------------------------------------------ launch plans
 # The rules of csrc/conv3d_fwd.cu and csrc/conv3d_dw.cu (``make_plan``),
-# field for field; bf16 takes the tensor-core bricks, f32 the FMA paths.
+# field for field; both dtypes take the bricks, bf16 in bf16 on the tensor
+# cores, f32 in 3xTF32.
 
-BRICK = (4, 8, 8)           # output voxels (d, h, w) of a bf16 CTA
+BRICK = (4, 8, 8)           # output voxels (d, h, w) of a CTA
 HALO = tuple(n + 2 for n in BRICK)
 SMEM_LIMIT = 232448         # bytes of shared memory a CTA may use (H100)
 SMS = 132                   # the H100 SXM's streaming multiprocessors
@@ -164,6 +173,25 @@ def _fwd_smem(bn):
             + BRICK[0] * BRICK[1] * BRICK[2] * bn * 2)
 
 
+FWD_F32_KC = 8     # f32: input channels a chunk (one k8 step)
+# f32: the widest Cout whose K splits the reduce kernel adds (a 4-channel
+# group a thread of 256)
+FWD_REDUCE_MAX_COUT = 1024
+
+
+def _fwd_f32_bn(cout):
+    """f32 output channels a CTA: a tile that divides Cout, else 16."""
+    return next((bn for bn in (64, 48, 32) if cout % bn == 0), 16)
+
+
+def _fwd_f32_smem(bn):
+    """The raw chunk, its hi / lo split, three steps of weights (three taps
+    x bn x 8 channels, hi and lo), the row-offset table, the column sums
+    (``F32<BN>`` in the source)."""
+    return (_NH * FWD_F32_KC * 4 + _NH * FWD_F32_KC * 8 + 3 * 3 * bn * 64
+            + _NH * 4 + 2 * bn * 4)
+
+
 DW_TILE, DW_STAGES, DW_THREADS = 32, 2, 256
 # the stages, and the running sums of 14 m64 x 32 tiles in f32 (the 27
 # taps' 32 x 32 tile and db's)
@@ -171,14 +199,25 @@ DW_SMEM = (DW_STAGES * (_NH + BRICK[0] * BRICK[1] * BRICK[2]) * DW_TILE * 2
            + 14 * 64 * DW_TILE * 4)
 
 
+# f32 dw: 16 ci x 32 or 16 co tiles on 9 warps; two stages of the haloed x
+# brick (rows of 16 + 8 floats) and the ct brick (rows of co + 8 floats)
+DW_F32_CI, DW_F32_THREADS = 16, 288
+
+
+def _dw_f32_smem(co_tile):
+    return 2 * (_NH * (DW_F32_CI + 8) + BRICK[0] * BRICK[1] * BRICK[2]
+                * (co_tile + 8)) * 4
+
+
 def _cdiv(a, b):
     return -(-a // b)
 
 
 class FwdPlan(NamedTuple):
-    """``conv3d_k3s1_fwd``'s launch: kind 1 is bricks of tile_d x tile_h x
-    tile_w voxels (grid x = bricks x Cout tiles, y = batch), kind 0 runs of
-    tile_w flattened voxels (grid x = runs, y = Cout tiles, z = batch)."""
+    """``conv3d_k3s1_fwd``'s launch: bricks of tile_d x tile_h x tile_w
+    voxels, grid x = (brick, Cout tile, K split) (the split fastest, then
+    the tile), y = batch; ``ksplit`` CTAs share a brick's K steps (f32
+    only)."""
     kind: int
     tile_d: int
     tile_h: int
@@ -189,13 +228,13 @@ class FwdPlan(NamedTuple):
     grid_z: int
     threads: int
     smem_bytes: int
+    ksplit: int
 
 
 class DwPlan(NamedTuple):
-    """``conv3d_k3s1_dw``'s launch: kind 1 is bricks, a queue of ((ci, co)
-    tile, brick) items cut into ``splits`` runs of equal length, one a CTA
-    (grid x); kind 0 runs of tile_w voxels (grid x = splits, y = 27 x
-    tiles)."""
+    """``conv3d_k3s1_dw``'s launch: bricks, a queue of ((ci, co) tile,
+    brick) items cut into ``splits`` runs of equal length, one a CTA (grid
+    x)."""
     kind: int
     tile_d: int
     tile_h: int
@@ -209,17 +248,29 @@ class DwPlan(NamedTuple):
     smem_bytes: int
 
 
-def fwd_plan(dtype, B, D, H, W, cin, cout) -> FwdPlan:
-    """The forward kernel's plan for a (B, D, H, W) output (any z mode)."""
-    del cin  # the plan does not depend on it: Cin is walked in chunks
+@functools.lru_cache(maxsize=None)
+def fwd_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> FwdPlan:
+    """The forward kernel's plan for a (B, D, H, W) output (any z mode) on
+    a card of ``sms`` SMs."""
+    bricks = math.prod(_cdiv(n, t) for n, t in zip((D, H, W), BRICK))
     if dtype == torch.bfloat16:
-        bricks = math.prod(_cdiv(n, t) for n, t in zip((D, H, W), BRICK))
         bn = 64 if cout % 64 == 0 else 32
         return FwdPlan(1, *BRICK, bn, bricks * _cdiv(cout, bn), B, 1, 128,
-                       _fwd_smem(bn))
-    tile = 32 if cout <= 32 else 64
-    return FwdPlan(0, 0, 0, 128, tile, _cdiv(D * H * W, 128),
-                   _cdiv(cout, tile), B, 256, 0)
+                       _fwd_smem(bn), 1)
+    bn = _fwd_f32_bn(cout)
+    ctas = bricks * _cdiv(cout, bn)
+    ksplit = 1
+    if ctas * B < sms and cout <= FWD_REDUCE_MAX_COUT:
+        ksplit = min(_cdiv(sms, ctas * B), 9 * (cin // FWD_F32_KC))
+    return FwdPlan(1, *BRICK, bn, ctas * ksplit, B, 1, 128,
+                   _fwd_f32_smem(bn), ksplit)
+
+
+def fwd_scratch_floats(plan: FwdPlan, B, D, H, W, cin, cout) -> int:
+    """f32 scratch of a forward launch: the weights split into hi and lo,
+    and the K splits' partial outputs where there is more than one."""
+    parts = plan.ksplit * B * D * H * W * cout if plan.ksplit > 1 else 0
+    return 54 * cin * cout + parts
 
 
 def dw_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> DwPlan:
@@ -231,25 +282,22 @@ def dw_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> DwPlan:
         ctas = min(sms, items)
         return DwPlan(1, *BRICK, DW_TILE, DW_TILE, ctas, ctas, 1, DW_THREADS,
                       DW_SMEM)
-    bm, bn = (64 if cin >= 64 else 32), (64 if cout >= 64 else 32)
-    total = B * D * H * W
-    chunks = _cdiv(total, 32)
-    tiles = 27 * _cdiv(cin, bm) * _cdiv(cout, bn)
-    splits = max(1, min(_cdiv(2048, tiles), chunks // 8))
-    run = _cdiv(chunks, splits) * 32
-    splits = _cdiv(total, run)
-    return DwPlan(0, 0, 0, run, bm, bn, splits, splits, tiles,
-                  (bm // 4) * (bn // 4), 0)
+    co_tile = 32 if cout % 32 == 0 else 16
+    bricks = B * math.prod(_cdiv(n, t) for n, t in zip((D, H, W), BRICK))
+    items = _cdiv(cin, DW_F32_CI) * _cdiv(cout, co_tile) * bricks
+    ctas = min(sms, items)
+    return DwPlan(1, *BRICK, DW_F32_CI, co_tile, ctas, ctas, 1,
+                  DW_F32_THREADS, _dw_f32_smem(co_tile))
 
 
 def compiled_plans(dtype, B, D, H, W, cin, cout):
-    """(forward, dw) plans as the compiled sources report them (the card's
-    SM count for dw); on the machine with the card."""
+    """(forward, dw) plans as the compiled sources report them at the
+    card's SM count; on the machine with the card."""
     code = DTYPE_CODE[dtype]
     out = []
     for source, name, n, cls, args in (
-            ("conv3d_fwd.cu", "conv3d_k3s1_fwd_plan", 10, FwdPlan,
-             (code, B, D, H, W, cout)),
+            ("conv3d_fwd.cu", "conv3d_k3s1_fwd_plan", 11, FwdPlan,
+             (code, B, D, H, W, cin, cout, 0)),
             ("conv3d_dw.cu", "conv3d_k3s1_dw_plan", 11, DwPlan,
              (code, B, D, H, W, cin, cout, 0))):
         from ._build import c_function
@@ -279,10 +327,16 @@ def _check_weights(x, w, cin):
     return cout
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_fwd(name, x, w, bias, residual, circular, with_sums, d_out,
                 zmode):
     """Launch ``csrc/conv3d_fwd.cu`` in ``zmode`` on x (B, Din, H, W, Cin)
-    for d_out output planes. Returns (out, sums)."""
+    for d_out output planes. Returns (out, sums, the CUDA kernels launched:
+    f32 adds the weight split and, where K is split, the reduce)."""
     B, _, H, W, cin = x.shape
     cout = w.shape[4]
     dev = x.device
@@ -295,16 +349,25 @@ def _launch_fwd(name, x, w, bias, residual, circular, with_sums, d_out,
     out = torch.empty((B, d_out, H, W, cout), dtype=x.dtype, device=dev)
     sums = (torch.zeros((B, 2, cout), dtype=torch.float32, device=dev)
             if with_sums else None)
-    operands = (x, wt, bias_f, residual, out, sums)
+    scratch, sms, n_kernels = None, 0, 1
+    if x.dtype == torch.float32:
+        sms = _sm_count(dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+        plan = fwd_plan(x.dtype, B, d_out, H, W, cin, cout, sms)
+        scratch = torch.empty(
+            fwd_scratch_floats(plan, B, d_out, H, W, cin, cout),
+            dtype=torch.float32, device=dev)
+        n_kernels = 2 + (plan.ksplit > 1)
+    operands = (x, wt, bias_f, residual, out, sums, scratch)
     check_aligned(name, *operands)
     ptrs = [t.data_ptr() if t is not None else None for t in operands]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn("conv3d_fwd.cu", "conv3d_k3s1_fwd", 6, 8)(
+    err = _fn("conv3d_fwd.cu", "conv3d_k3s1_fwd", 7, 9)(
         DTYPE_CODE[x.dtype], *ptrs, B, d_out, H, W, cin, cout,
-        int(bool(circular)), zmode, stream)
+        int(bool(circular)), zmode, sms, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    return out, sums
+    return out, sums, n_kernels
 
 
 def _check_residual(x, residual, shape):
@@ -338,10 +401,11 @@ def conv3d_k3s1_fwd(
     check_forward_only("conv3d_k3s1_fwd", x, w, bias, residual)
     if not on_cuda("conv3d_k3s1_fwd", x):
         return conv3d_k3s1_plain(x, w, bias, residual, circular, with_sums)
-    out = _launch_fwd("conv3d_k3s1_fwd", x, w, bias, residual, circular,
-                      with_sums, D, 0)
+    y, sums, n_kernels = _launch_fwd("conv3d_k3s1_fwd", x, w, bias,
+                                     residual, circular, with_sums, D, 0)
     conv3d_k3s1_fwd.launches += 1
-    return out
+    conv3d_k3s1_fwd.cuda_launches += n_kernels
+    return y, sums
 
 
 def conv3d_k3s1_zhalo_fwd(
@@ -368,10 +432,12 @@ def conv3d_k3s1_zhalo_fwd(
     if not on_cuda("conv3d_k3s1_zhalo_fwd", x):
         return conv3d_k3s1_zhalo_plain(x, w, bias, residual, circular,
                                        with_sums)
-    out = _launch_fwd("conv3d_k3s1_zhalo_fwd", x, w, bias, residual,
-                      circular, with_sums, Dh - 2, 1)
+    y, sums, n_kernels = _launch_fwd("conv3d_k3s1_zhalo_fwd", x, w, bias,
+                                     residual, circular, with_sums, Dh - 2,
+                                     1)
     conv3d_k3s1_zhalo_fwd.launches += 1
-    return out
+    conv3d_k3s1_zhalo_fwd.cuda_launches += n_kernels
+    return y, sums
 
 
 def conv3d_k3s1_zhalo_dx(ct: torch.Tensor, w: torch.Tensor,
@@ -393,9 +459,10 @@ def conv3d_k3s1_zhalo_dx(ct: torch.Tensor, w: torch.Tensor,
     if not on_cuda("conv3d_k3s1_zhalo_dx", ct):
         return conv3d_k3s1_zhalo_dx_plain(ct, w, circular)
     w_t = w.flip(0, 1, 2).transpose(3, 4)
-    out, _ = _launch_fwd("conv3d_k3s1_zhalo_dx", ct, w_t, None, None,
-                         circular, False, D + 2, 2)
+    out, _, n_kernels = _launch_fwd("conv3d_k3s1_zhalo_dx", ct, w_t, None,
+                                    None, circular, False, D + 2, 2)
     conv3d_k3s1_zhalo_dx.launches += 1
+    conv3d_k3s1_zhalo_dx.cuda_launches += n_kernels
     return out
 
 
@@ -479,3 +546,9 @@ conv3d_k3s1_dw.launches = 0
 conv3d_k3s1_zhalo_fwd.launches = 0
 conv3d_k3s1_zhalo_dx.launches = 0
 conv3d_k3s1_zhalo_dw.launches = 0
+# The forward kernel's f32 calls launch two or three CUDA kernels each (the
+# weight split, the conv, the K splits' reduce): ``cuda_launches`` counts
+# them all, ``launches`` the calls.
+conv3d_k3s1_fwd.cuda_launches = 0
+conv3d_k3s1_zhalo_fwd.cuda_launches = 0
+conv3d_k3s1_zhalo_dx.cuda_launches = 0
