@@ -132,13 +132,33 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 parent, which prints them. These times are those of two
                 processes sharing one card through host memory: no
                 multi-card figure;
- 13. profile  - device time by kernel and the device's idle share over UNet
+ 13. twod     - the 2D model family at the full width of its presets (256^2,
+                batch 12, f32, chs 48..384, GRF data: circular), whose convs
+                are all cuDNN's and whose norms and skip projections are the
+                hand kernels: the library conv's precision with the process
+                at PyTorch's default TF32 setting (``conv_nd`` forward, dx
+                and dw against f64, at f32 accuracy); ``train_uc_c``'s
+                eps_hat and every gradient (64^2 crop, b2, dropout 0.1) on
+                the card against the CPU path; every distinct norm and
+                ``skip_proj`` site of ``train_uc_c`` (read off a forward)
+                checked and timed at b12 (``site`` lines, the 3D lines'
+                names), and a decoder join whose group straddles its
+                halves; 3 timed train steps of ``train_uc_c`` and of
+                ``trainSFM_c_uc`` (mid_attn) with s/step, Mpixel/s, peak
+                memory, launches per step, then their device time by
+                category and idle share, and 3 sampler steps at b1 (VDM
+                ancestral, SFM Heun): s/step, s/field at 250; then
+                ``cli.train --preset smoke_vdm_2d`` to 3 steps, resumed to
+                5 (launches per step equal to a bare step's of the preset),
+                and ``cli.generate`` CV_12_12 from its checkpoints (12
+                files of (12, 1, 32, 32));
+ 14. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM), and
                 over the blessed model's forward at (12, 32^3) f32 with its
                 3x3x3 convs' GFLOP, rate and share of the 3xTF32 bound
                 (``blessed_conv_rate``), and over its f32 train step
                 (``blessed_train_dw``: dw's device ms a step);
- 14. the ``kernels`` line (``launches``: of the four forward kernels, the
+ 15. the ``kernels`` line (``launches``: of the four forward kernels, the
      ``blessed`` phase's, this slice's path, also as ``launches_blessed``,
      and the CUDA kernels the conv forward's calls launched there as
      ``cuda_launches_blessed`` (an f32 call launches two or three); of the
@@ -149,8 +169,15 @@ while developing and then prints no ``kernels`` or ``ok`` line):
      ``launches_sfm_train``, ``launches_vdm_train``, ``launches_sampler`` and
      ``launches_sfm_sampler``; the sharded train steps' launches on rank 0 as
      ``launches_sharded``, which is also the ``launches`` of the z-halo rows
-     and of the norm kernels' CP rows), the raw nvidia-smi line, and last
+     and of the norm kernels' CP rows; the ``twod`` phase's launches as
+     ``launches_twod`` and, for the norm and 1x1 kernels, their largest 2D
+     site's times as ``twod_site``), the raw nvidia-smi line, and last
      {"ok": true, "device": {...}}.
+
+``--phases precision`` (run only when asked) holds the trained model's f32
+path with the process at PyTorch's default TF32 setting: eps_hat against
+the CPU and the library convs' device ms, a forward and a train step; with
+``--port DIR`` of an earlier commit, in the same call, the before column.
 
 The models are built from their presets' names (``vdm4cdm_torch.presets`` and
 ``config.build_model``) with the crop size overridden and ``remat`` off where
@@ -192,11 +219,12 @@ TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
 SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
-          "cli", "blessed", "sharded", "profile")  # in the order they run
+          "cli", "blessed", "sharded", "twod",
+          "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
 # alone (the kernels phase takes them too), for a before/after table with
-# --port
-EXTRA_PHASES = ("sites",)
+# --port; the trained model's f32 path at PyTorch's default TF32 setting
+EXTRA_PHASES = ("sites", "precision")
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
@@ -589,16 +617,17 @@ def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
     return lines
 
 
-def check_pair_norm(torch, size, ca, cb, groups, dtype_name):
+def check_pair_norm(torch, size, ca, cb, groups, dtype_name, nd=3):
     """A decoder skip join through both GroupNorm kernels: joint statistics
-    over a Pair whose group straddles the boundary, against GroupNorm + SiLU
-    over the materialized concat in plain f32 torch."""
+    over a Pair of ``nd``-dimensional halves whose group straddles the
+    boundary, against GroupNorm + SiLU over the materialized concat in plain
+    f32 torch."""
     from vdm4cdm_torch.ops.norm import norm_affine_act
     from vdm4cdm_torch.ops.pair import Pair
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(size + ca + cb)
-    shape = (2, size, size, size)
+    shape = (2,) + (size,) * nd
     xa = (1.3 * torch.randn(*shape, ca, generator=gen, device="cuda")
           + 0.2).to(dtype)
     xb = (0.7 * torch.randn(*shape, cb, generator=gen, device="cuda")
@@ -621,7 +650,7 @@ def check_pair_norm(torch, size, ca, cb, groups, dtype_name):
         tol = 1e-4  # two-pass sums vs torch's centred variance, in f32
     group = C // groups
     line = {"phase": "kernel", "kernel": "gn_sums+gn_apply (pair)",
-            "shape": [2, size ** 3, ca, cb], "groups": groups,
+            "shape": [2, size ** nd, ca, cb], "groups": groups,
             "straddling_group": [(ca // group) * group,
                                  (ca // group + 1) * group - 1],
             "dtype": dtype_name, "max_abs_err": abs_err, "rel_err": err,
@@ -755,12 +784,13 @@ def norm_inputs(torch, size, C, dtype_name, batch, groups=8, S=None):
     return x, ct, mean, inv.contiguous(), a, b
 
 
-def check_dropout_apply(torch, K, size, C, dtype_name, batch):
+def check_dropout_apply(torch, K, size, C, dtype_name, batch, S=None):
     """``gn_apply`` at p = 0.1 against its plain version: the kernel's Philox
     bits equal the plain version's (one differing bit is an O(1) error), and
-    the keep rate lies within 4 sigma of 1 - p."""
+    the keep rate lies within 4 sigma of 1 - p. ``S`` voxels (default
+    size^3)."""
     x, _, mean, inv, a, b = norm_inputs(torch, size, C, dtype_name, batch,
-                                        groups=math.gcd(C, 8))
+                                        groups=math.gcd(C, 8), S=S)
     scale, shift = a * inv, b - mean * a * inv
     seed = 0x1234567890ABCDEF ^ (size * C)
     from vdm4cdm_torch.ops.kernels.philox import keep_mask_plain
@@ -919,17 +949,17 @@ def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
     return lines
 
 
-def check_pair_norm_bwd(torch, size, ca, cb, groups, dtype_name):
+def check_pair_norm_bwd(torch, size, ca, cb, groups, dtype_name, nd=3):
     """The backward of a decoder skip join: the norm Function over a Pair
-    whose group straddles the boundary (joint group means in the finalize)
-    against autograd through GroupNorm + SiLU over the materialized concat
-    in plain f32 torch."""
+    of ``nd``-dimensional halves whose group straddles the boundary (joint
+    group means in the finalize) against autograd through GroupNorm + SiLU
+    over the materialized concat in plain f32 torch."""
     from vdm4cdm_torch.ops.norm import norm_affine_act
     from vdm4cdm_torch.ops.pair import Pair
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(size + ca - cb)
-    shape = (2, size, size, size)
+    shape = (2,) + (size,) * nd
     xa = (1.3 * torch.randn(*shape, ca, generator=gen, device="cuda")
           + 0.2).to(dtype).requires_grad_(True)
     xb = (0.7 * torch.randn(*shape, cb, generator=gen, device="cuda")
@@ -962,7 +992,7 @@ def check_pair_norm_bwd(torch, size, ca, cb, groups, dtype_name):
     db_err = ((got[3] - dbr).abs().max() / dbr.abs().max()).item()
     group = C // groups
     line = {"phase": "kernel", "kernel": "gn_bwd_sums+gn_bwd_apply (pair)",
-            "shape": [2, size ** 3, ca, cb], "groups": groups,
+            "shape": [2, size ** nd, ca, cb], "groups": groups,
             "straddling_group": [(ca // group) * group,
                                  (ca // group + 1) * group - 1],
             "dtype": dtype_name, "max_abs_err": abs_err, "rel_err": err,
@@ -989,20 +1019,21 @@ def mm1x1_cases():
     ]
 
 
-def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
+def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed, nd=3):
     """``mm1x1_fwd`` with and without bias and residual, its use as the dx
-    pass and ``mm1x1_dw`` against their plain versions; returns the forward
-    (bias and residual), dx and dw lines."""
+    pass and ``mm1x1_dw`` against their plain versions, on ``nd``
+    spatial dims of ``size``; returns the forward (bias and residual), dx
+    and dw lines."""
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(size * 999 + cin + cout)
-    shape = (batch, size, size, size)
+    shape = (batch,) + (size,) * nd
     x = torch.randn(*shape, cin, generator=gen, device="cuda").to(dtype)
     w = torch.randn(cin, cout, generator=gen, device="cuda") / math.sqrt(cin)
     bias = 0.3 * torch.randn(cout, generator=gen, device="cuda")
     res = torch.randn(*shape, cout, generator=gen, device="cuda").to(dtype)
     ct = torch.randn(*shape, cout, generator=gen, device="cuda").to(dtype)
     tol, tol_dw = TOL[("conv", dtype_name)], TOL[("dw", dtype_name)]
-    dims = [batch * size ** 3, cin, cout]
+    dims = [batch * size ** nd, cin, cout]
     with torch.inference_mode():
         errs = {}
         for name, args in (("bias_residual", (x, w, bias, res)),
@@ -1086,17 +1117,20 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed):
     return fwd, dxl, dwl
 
 
-def time_dropout_apply(torch, K, size, C, batch):
-    """``gn_apply`` with SiLU at p = 0.1 beside p = 0, bf16 (the check of its
-    values is ``check_dropout_apply``)."""
-    x, _, mean, inv, a, b = norm_inputs(torch, size, C, "bfloat16", batch)
+def time_dropout_apply(torch, K, size, C, batch, dtype_name="bfloat16",
+                       S=None):
+    """``gn_apply`` with SiLU at p = 0.1 beside p = 0 on ``S`` voxels
+    (default size^3), bf16 unless told otherwise (the check of its values
+    is ``check_dropout_apply``)."""
+    S = S or size ** 3
+    x, _, mean, inv, a, b = norm_inputs(torch, size, C, dtype_name, batch,
+                                        S=S)
     scale, shift = a * inv, b - mean * a * inv
     seed = 0x1234567890ABCDEF ^ (size * C)
-    S = size ** 3
     n = max(TIMED_MIN, min(100, int(4e8 // (batch * S * C))))
     with torch.inference_mode():
         line = {"phase": "kernel", "kernel": "gn_apply (dropout, timed)",
-                "shape": [batch, S, C], "dtype": "bfloat16", "p": DROPOUT_P,
+                "shape": [batch, S, C], "dtype": dtype_name, "p": DROPOUT_P,
                 "ms": cuda_time_ms(lambda: K.gn_apply(
                     x, scale, shift, "silu", DROPOUT_P, seed), n),
                 "ms_p0": cuda_time_ms(lambda: K.gn_apply(
@@ -1104,8 +1138,8 @@ def time_dropout_apply(torch, K, size, C, batch):
                 "plain_ms": cuda_time_ms(lambda: K.gn_apply_plain(
                     x, scale, shift, True, DROPOUT_P, seed), 3, 1)}
     line["bound_ms"], line["bound_by"] = bound_ms(
-        6.0 * batch * S * C, 2 * batch * S * C * 2 + 2 * batch * C * 4,
-        "bfloat16")
+        6.0 * batch * S * C,
+        2 * batch * S * C * x.element_size() + 2 * batch * C * 4, dtype_name)
     emit(line)
     return line
 
@@ -1505,7 +1539,8 @@ def phase_grads(torch, vt, K):
     emit(line)
 
 
-def check_grads(torch, name, out, counts, size, t0):
+def check_grads(torch, name, out, counts, size, t0,
+                kernels=None):
     (got_l, got_g), (ref_l, ref_g) = out["cuda"], out["cpu"]
     loss_err = {k: abs(getattr(got_l, k).item() - getattr(ref_l, k).item())
                 / max(1.0, abs(getattr(ref_l, k).item()))
@@ -1522,7 +1557,7 @@ def check_grads(torch, name, out, counts, size, t0):
             "launches": counts, "seconds": time.perf_counter() - t0}
     fail_unless(finite and errs[worst] <= GRADS_TOL
                 and line["loss_rel_err"] <= 1e-4 and top > 1e-3
-                and min(counts[k] for k in UNSHARDED_KERNELS) > 0,
+                and min(counts[k] for k in kernels or UNSHARDED_KERNELS) > 0,
                 "gradient parity failed", line)
     emit(line)
 
@@ -2296,6 +2331,491 @@ def phase_blessed(torch, vt, K, kernels):
             v[:1].expand(reps, -1).cuda(), trainer)
 
 
+# ------------------------------------------------------------- 2D phase
+
+# the 2D models at the full width of their presets (reference
+# train_uc_c / trainSFM_c_uc: 256^2 maps, batch 12, f32), on GRF data
+# (periodic: circular padding); every conv of a 2D model is cuDNN's, the
+# norms and the skip projections are the hand kernels
+TWOD_VDM, TWOD_SFM, TWOD_CLI = "train_uc_c", "trainSFM_c_uc", "smoke_vdm_2d"
+TWOD_CHS = (48, 96, 192, 384)
+TWOD_SIZE, TWOD_BATCH, TWOD_PARITY_SIZE = 256, 12, 64
+TWOD_KERNELS = ("gn_sums", "gn_apply", "gn_bwd_sums", "gn_bwd_apply",
+                "mm1x1_fwd", "mm1x1_dw")
+TWOD_FORWARD = ("gn_sums", "gn_apply", "mm1x1_fwd")
+# the CLI drive: train to 3 (a checkpoint at 3), resume to 5 (steps 4 and
+# 5 validate nowhere, so their launches are the train steps' alone)
+TWOD_CLI_FIRST, TWOD_CLI_LAST = 3, 5
+TWOD_PAIR = (64, 384, 192, 8)  # up_2_0's join: 576 channels, groups of 72
+
+
+def build_2d(vt, name, size, device, seed, **overrides):
+    """A 2D preset's model at crop ``size`` on GRF data, remat off, every
+    parameter randomized from the seed; returns (model, config)."""
+    cfg = vt.preset(name, **{"data.kind": "grf", "data.cropsize": size,
+                             "model.remat": False, **overrides})
+    if tuple(cfg.model.chs) != TWOD_CHS or cfg.model.ndim != 2:
+        raise AssertionError(f"{name} is not the full-width 2D model")
+    model = vt.build_model(cfg, device=device)
+    randomize_(model, seed)
+    return model.eval(), cfg
+
+
+def batch_2d(torch, vt, cfg, batch, device):
+    """The preset's own GRF batch of ``batch`` fields, on ``device``."""
+    cfg.data.batch_size = batch
+    raw = next(vt.build_datamodule(cfg).train_batches(1))
+    return {k: ([torch.from_numpy(a).to(device) for a in v]
+                if isinstance(v, list) else torch.from_numpy(v).to(device))
+            for k, v in raw.items()}
+
+
+def check_library_conv_precision(torch):
+    """The repair of the library conv's precision: ``conv_nd`` on f32 card
+    tensors, with the process at PyTorch's default (TF32 on for cuDNN
+    convolutions), against an f64 reference on the card: forward, dx and dw
+    at f32 accuracy; the bare ``F.conv2d`` under the same setting beside it
+    (one TF32 pass)."""
+    import torch.nn.functional as F
+
+    from vdm4cdm_torch.ops.conv import conv_nd
+
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    B, H, C = 2, TWOD_SIZE, TWOD_CHS[0]
+    x = torch.randn(B, H, H, C, generator=gen, device="cuda")
+    w = torch.randn(3, 3, C, C, generator=gen, device="cuda") / math.sqrt(
+        9 * C)
+    ct = torch.randn(B, H, H, C, generator=gen, device="cuda")
+
+    def ref_conv(xx, ww):
+        xc = F.pad(xx.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="circular")
+        return F.conv2d(xc, ww.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+
+    x64, w64 = (t.double().requires_grad_(True) for t in (x, w))
+    y64 = ref_conv(x64, w64)
+    dx64, dw64 = torch.autograd.grad(y64, (x64, w64), ct.double())
+    xg, wg = (t.clone().requires_grad_(True) for t in (x, w))
+    with cudnn_benchmark(tf32=True):
+        y = conv_nd(xg, wg, padding_mode="circular")
+        dx, dw = torch.autograd.grad(y, (xg, wg), ct)
+        with torch.no_grad():
+            y_raw = ref_conv(x, w)
+        torch.cuda.synchronize()
+    errs = {name: rel_err(got, ref)[1] for name, got, ref in (
+        ("y", y, y64), ("dx", dx, dx64), ("dw", dw, dw64),
+        ("y_bare_conv2d_tf32_default", y_raw, y64))}
+    tol = TOL[("conv", "float32")]
+    line = {"phase": "twod", "what": "library conv precision",
+            "shape": [B, H, H, C, C], "mode": "circular",
+            "process_tf32": True, "rel_err": errs, "tol": tol}
+    fail_unless(max(errs["y"], errs["dx"], errs["dw"]) <= tol,
+                "the library conv ran below f32 accuracy", line)
+    emit(line)
+
+
+def twod_parity(torch, vt, K):
+    """``train_uc_c`` at full width on a 64^2 crop, batch 2, f32: eps_hat,
+    then the loss and every parameter's gradient (dropout 0.1, injected t,
+    eps and seed), on the card against the CPU plain path."""
+    t0 = time.perf_counter()
+    size = TWOD_PARITY_SIZE
+    models = {dev: build_2d(vt, TWOD_VDM, size, dev, 71)[0]
+              for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(72)
+    z = torch.randn(2, size, size, 1, generator=gen)
+    x = torch.randn(2, size, size, 1, generator=gen)
+    eps = torch.randn(2, size, size, 1, generator=gen)
+    v = torch.randn(2, 6, generator=gen)
+    t = torch.tensor([0.3, 0.8])
+    with torch.inference_mode():
+        ref = models["cpu"].eps_hat(z, t, None, [v])
+        got = models["cuda"].eps_hat(z.cuda(), t.cuda(), None,
+                                     [v.cuda()]).cpu()
+    abs_err, err = rel_err(got, ref)
+    line = {"phase": "twod", "what": "eps_hat parity", "model": TWOD_VDM,
+            "size": size, "batch": 2, "chs": list(TWOD_CHS),
+            "dtype": "float32", "max_abs_ref": ref.abs().max().item(),
+            "max_abs_err": abs_err, "rel_err": err, "tol": PARITY_TOL,
+            "seconds": time.perf_counter() - t0}
+    fail_unless(bool(torch.isfinite(got).all()) and err <= PARITY_TOL
+                and ref.abs().max().item() > 0.1, "2D eps_hat parity failed",
+                line)
+    emit(line)
+
+    t0 = time.perf_counter()
+    out = {}
+    K.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        batch = {"x": x.to(dev), "conditioning": None,
+                 "conditioning_values": [v.to(dev)]}
+        out[dev] = loss_and_grads(models[dev].train(), batch, t.to(dev),
+                                  eps.to(dev), 0x2D5EED)
+    check_grads(torch, f"{TWOD_VDM} (2D, {size}^2)", out,
+                K.launch_counts(), size, t0, kernels=TWOD_KERNELS)
+
+
+def twod_train(torch, vt, K, name, seed):
+    """A warm-up and 3 timed f32 train steps of a 2D preset at 256^2, batch
+    12, then its device time by category and idle share (profiled steps
+    after the timed ones)."""
+    torch.cuda.empty_cache()
+    held = resident_gib(torch)
+    model, cfg = build_2d(vt, name, TWOD_SIZE, "cuda", seed)
+    batch = batch_2d(torch, vt, cfg, TWOD_BATCH, "cuda")
+    facts, trainer = timed_train_steps(torch, vt, K, model, batch,
+                                       TRAIN_STEPS, seed + 1,
+                                       kernels=TWOD_KERNELS, moment=None)
+    net = model.score_model if hasattr(model, "score_model") else model.unet
+    line = {"phase": "twod", "what": "train", "preset": name,
+            "size": TWOD_SIZE, "batch": TWOD_BATCH,
+            "padding": net.conv_padding_mode, "mid_attn": net.mid_attn,
+            "held_by_earlier_phases_gib": held,
+            "mpixel_per_s": facts["voxels_per_s"] / 1e6, **facts}
+    emit(line)
+    prof = phase_profile_train(torch, *trainer, tag=f"twod_{name}",
+                               library=LIBRARY_2D)
+    return facts, prof, trainer
+
+
+def twod_sampler(torch, K, model, batch, family):
+    """3 sampler steps at batch 1 (the VDM's ancestral steps, the SFM's
+    Heun steps) after a one-step warm-up: s/step and s/field at 250."""
+    v = [a[:1] for a in batch["conditioning_values"]]
+    if family == "vdm":
+        gen = torch.Generator(device="cuda")
+
+        def draw(n):
+            return model.draw_samples(gen.manual_seed(5), batch_size=1,
+                                      n_sampling_steps=n, v_conditionings=v)
+        forwards = 1
+    else:
+        x0 = batch["x0"][:1]
+
+        def draw(n):
+            return model.draw_samples(x0, n, v, method="heun")
+        forwards = 2
+    model.eval()
+    draw(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = draw(MAIN_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    finite = bool(torch.isfinite(out).all())
+    line = {"phase": "twod", "what": "draw_samples", "family": family,
+            "method": "ancestral" if family == "vdm" else "heun",
+            "size": TWOD_SIZE, "batch": 1, "steps": MAIN_STEPS,
+            "forwards_per_step": forwards, "seconds": dt,
+            "s_per_step": dt / MAIN_STEPS,
+            "s_per_field_250": dt / MAIN_STEPS * FIELD_STEPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts,
+            "launches_per_forward": {k: c / (forwards * MAIN_STEPS)
+                                     for k, c in counts.items()},
+            "out_shape": list(out.shape), "finite": finite}
+    fail_unless(finite and tuple(out.shape) == (1, TWOD_SIZE, TWOD_SIZE, 1)
+                and min(counts[k] for k in TWOD_FORWARD) > 0,
+                "the 2D sampler did not give a finite field through every "
+                "forward kernel", line)
+    emit(line)
+    return counts
+
+
+@contextlib.contextmanager
+def recorded_sites(sites):
+    """Every call of the norm and 1x1 kernels, as ``ops/norm.py`` and
+    ``ops/conv.py`` make them, adds its site to ``sites``: ("norm", S, C)
+    for ``gn_apply`` and ("mm1x1", S, K, N) for a forward with bias (the
+    projection itself, not its dx pass)."""
+    from vdm4cdm_torch.ops import conv as ops_conv
+    from vdm4cdm_torch.ops import norm as ops_norm
+
+    apply, fwd = ops_norm.gn_apply, ops_conv.mm1x1_fwd
+
+    def gn_apply(x, a, b, act, p=0.0, seed=0):
+        sites.add(("norm", x.shape[1], x.shape[2]))
+        return apply(x, a, b, act, p, seed)
+
+    def mm1x1_fwd(x, w, bias=None, residual=None, w_transposed=False):
+        if bias is not None:
+            sites.add(("mm1x1", x.shape[1:-1].numel(), w.shape[0],
+                       w.shape[1]))
+        return fwd(x, w, bias, residual, w_transposed)
+
+    ops_norm.gn_apply, ops_conv.mm1x1_fwd = gn_apply, mm1x1_fwd
+    try:
+        yield sites
+    finally:
+        ops_norm.gn_apply, ops_conv.mm1x1_fwd = apply, fwd
+
+
+def twod_sites(torch, vt, K):
+    """Every distinct norm and ``skip_proj`` site of ``train_uc_c`` (read
+    off one forward at 256^2), checked and timed at batch 12 in f32: the
+    norm's four passes (the apply and the backward pair at p = 0.1 beside
+    p = 0, dropout checked bit for bit), the 1x1 projection's forward, dx
+    pass and dw; then one decoder join whose group straddles the halves,
+    forward and backward. One ``site`` line each, with the 3D site lines'
+    names; returns the lines of the largest site of each kernel."""
+    t0 = time.perf_counter()
+    model, cfg = build_2d(vt, TWOD_VDM, TWOD_SIZE, "cuda", 73)
+    batch = batch_2d(torch, vt, cfg, 1, "cuda")
+    sites = set()
+    with recorded_sites(sites), torch.inference_mode():
+        model.eps_hat(batch["x"], torch.tensor([0.5], device="cuda"), None,
+                      batch["conditioning_values"], train=True,
+                      dropout_seed=1)
+    del model
+    dt, B = "float32", TWOD_BATCH
+    norm = sorted(s[1:] for s in sites if s[0] == "norm")
+    mm = sorted(s[1:] for s in sites if s[0] == "mm1x1")
+    heads, keys = {}, ("ms", "library_ms", "bound_ms")
+    for S, C in norm:
+        size = int(round(math.sqrt(S)))
+        sums, apply = check_norm(torch, K, size, C, dt, B, True, S=S)
+        check_dropout_apply(torch, K, size, C, dt, B, S=S)
+        drop = time_dropout_apply(torch, K, size, C, B, dt, S=S)
+        bwd = check_norm_bwd(torch, K, size, C, dt, B, "silu", DROPOUT_P,
+                             True, S=S)
+        bwd0 = check_norm_bwd(torch, K, size, C, dt, B, "silu", 0.0, True,
+                              S=S)
+        emit({"phase": "site", "model": TWOD_VDM, "kernel": "norm",
+              "shape": [B, S, C], "dtype": dt, "p": DROPOUT_P,
+              "gn_sums": {k: sums[k] for k in keys},
+              "gn_apply": {"ms": drop["ms"], "ms_p0": drop["ms_p0"],
+                           "library_ms": apply["library_ms"],
+                           "bound_ms": drop["bound_ms"]},
+              **{name: {"ms": ln["ms"], "ms_p0": ln0["ms"],
+                        "library_ms": ln["library_ms"],
+                        "bound_ms": ln["bound_ms"]}
+                 for name, ln, ln0 in (("gn_bwd_sums", bwd[0], bwd0[0]),
+                                       ("gn_bwd_apply", bwd[1], bwd0[1]))}})
+        for name, ln in (("gn_sums", sums), ("gn_apply", apply),
+                         ("gn_bwd_sums", bwd[0]), ("gn_bwd_apply", bwd[1])):
+            if name not in heads or ln["bound_ms"] > heads[name]["bound_ms"]:
+                heads[name] = ln
+    for S, cin, cout in mm:
+        size = int(round(math.sqrt(S)))
+        fwd, dxl, dwl = check_mm1x1(torch, K, size, cin, cout, dt, B, True,
+                                    nd=2)
+        emit({"phase": "site", "model": TWOD_VDM, "kernel": "mm1x1",
+              "shape": [B * S, cin, cout], "dtype": dt,
+              "fwd": {k: fwd[k] for k in keys},
+              "no_residual": {"ms": fwd["ms_no_residual"],
+                              "library_ms": fwd["library_no_residual_ms"],
+                              "bound_ms": fwd["bound_no_residual_ms"]},
+              **{part: {k: ln[k] for k in keys}
+                 for part, ln in (("dx", dxl), ("dw", dwl))}})
+        for name, ln in (("mm1x1_fwd", fwd), ("mm1x1_dw", dwl)):
+            if name not in heads or ln["bound_ms"] > heads[name]["bound_ms"]:
+                heads[name] = ln
+    size, ca, cb, groups = TWOD_PAIR
+    check_pair_norm(torch, size, ca, cb, groups, dt, nd=2)
+    check_pair_norm_bwd(torch, size, ca, cb, groups, dt, nd=2)
+    emit({"phase": "twod", "what": "sites", "model": TWOD_VDM,
+          "norm_sites": norm, "mm1x1_sites": mm,
+          "seconds": time.perf_counter() - t0})
+    fail_unless(len(norm) > 0 and len(mm) > 0 and any(
+        S == TWOD_SIZE ** 2 for S, _ in norm), "no 2D sites recorded",
+        {"sites": sorted(sites)})
+    return heads
+
+
+def twod_cli(torch, vt, K):
+    """``cli.train --preset smoke_vdm_2d`` to step 3, resumed to 5, then
+    ``cli.generate`` CV_12_12 from its checkpoints (2 sampler steps, 12
+    reps a call): the resumed steps' launches must equal a bare step's of
+    the same preset. Run directory in ``chiprun_out/cli_runs_2d/``;
+    checkpoints and samples deleted after their checks."""
+    import shutil
+
+    from vdm4cdm_torch.cli import generate, train
+
+    t0 = time.perf_counter()
+    cfg = vt.preset(TWOD_CLI)
+    model = vt.build_model(cfg, device="cuda")
+    randomize_(model, 74)
+    bare, _ = timed_train_steps(torch, vt, K, model.train(),
+                                batch_2d(torch, vt, cfg,
+                                         cfg.data.batch_size, "cuda"), 1, 75,
+                                kernels=TWOD_KERNELS, moment=None)
+    del model
+    root = OUT_DIR / "cli_runs_2d"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log = root / "smoke_vdm_2d.log"
+    sets = [f"run.out_dir={root}",
+            f"run.ckpt_every_steps={TWOD_CLI_FIRST}",
+            f"run.val_check_interval={TWOD_CLI_FIRST}",
+            "run.n_val_batches=1", "run.log_every_steps=1",
+            f"run.n_figure_sampling_steps={FIGURE_STEPS}"]
+    counts, out = {}, []
+    for what, steps in (("train", TWOD_CLI_FIRST), ("resume", TWOD_CLI_LAST)):
+        K.reset_launch_counts()
+        rc, out = run_cli(train.main, ["--preset", TWOD_CLI, "--set", *sets,
+                                       f"run.max_steps={steps}"], log)
+        torch.cuda.synchronize()
+        counts[what] = K.launch_counts()
+        fail_unless(rc == 0, f"cli.train {what} failed", {"rc": rc})
+    resumed = [int(ln.rsplit(" ", 1)[1]) for ln in out
+               if ln.startswith("[trainer] resumed from step")]
+    ckpt_dir = root / TWOD_CLI / "checkpoints"
+    steps_saved = sorted(int(p.name) for p in ckpt_dir.iterdir())
+    gen_dir = root / "samples" / CLI_CAMPAIGN
+    K.reset_launch_counts()
+    rc, _ = run_cli(generate.main, [
+        TWOD_CLI, str(gen_dir), CLI_CAMPAIGN, "--ckpt-dir", str(ckpt_dir),
+        "--n-sampling-steps", str(CLI_SAMPLING_STEPS), "--reps-per-batch",
+        "12"], log)
+    torch.cuda.synchronize()
+    counts["generate"] = K.launch_counts()
+    files, finite = {}, rc == 0
+    for path in sorted(gen_dir.iterdir()):
+        a = np.load(path)
+        files[path.name] = list(a.shape)
+        finite = finite and bool(np.isfinite(a).all())
+    shutil.rmtree(gen_dir.parent)
+    shutil.rmtree(ckpt_dir)
+    n = TWOD_CLI_LAST - TWOD_CLI_FIRST
+    per_step = {k: c / n for k, c in counts["resume"].items()}
+    size = cfg.data.cropsize
+    line = {"phase": "twod", "what": "cli", "preset": TWOD_CLI,
+            "size": size, "batch": cfg.data.batch_size,
+            "chs": list(cfg.model.chs), "resumed_from":
+            resumed[0] if resumed else None, "checkpoint_steps": steps_saved,
+            "launches_per_step": per_step,
+            "bare_launches_per_step": bare["launches_per_step"],
+            "launches": counts, "files": files, "finite": finite,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    fail_unless(line["resumed_from"] == TWOD_CLI_FIRST
+                and steps_saved == [TWOD_CLI_FIRST, TWOD_CLI_LAST]
+                and all(per_step[k] == bare["launches_per_step"][k]
+                        for k in TWOD_KERNELS),
+                "the 2D CLI did not resume, or its launches per step differ "
+                "from the bare step's", line)
+    fail_unless(finite and len(files) == CLI_FILES and all(
+        shape == [12, 1, size, size] for shape in files.values())
+        and min(counts["generate"][k] for k in TWOD_FORWARD) > 0,
+        "the 2D campaign files are not 12 finite (12, 1, S, S) fields",
+        line)
+    return counts
+
+
+def phase_twod(torch, vt, K, kernels):
+    """The 2D model family (see the module docstring); every kernel's
+    launches over the phase's driven paths (the train steps, the samplers,
+    the CLI) go to ``kernels[...]["launches_twod"]``."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    check_library_conv_precision(torch)
+    twod_parity(torch, vt, K)
+    lap("precision_and_parity")
+    heads = twod_sites(torch, vt, K)
+    lap("sites")
+    total = {name: 0 for name in UNSHARDED_KERNELS}
+
+    def add(counts):
+        for name in total:
+            total[name] += counts[name]
+
+    summary = {}
+    for name, family, seed in ((TWOD_VDM, "vdm", 76), (TWOD_SFM, "sfm", 78)):
+        facts, prof, trainer = twod_train(torch, vt, K, name, seed)
+        add(facts["launches"])
+        add(twod_sampler(torch, K, trainer[0].model, trainer[2], family))
+        summary[name] = {"s_per_step": facts["s_per_step"],
+                         "peak_mem_gib": facts["peak_mem_gib"],
+                         "idle_share": prof["idle_share"],
+                         "by_category_ms": prof["by_category_ms"]}
+        del trainer
+        lap(name)
+    cli = twod_cli(torch, vt, K)
+    for counts in cli.values():
+        add(counts)
+    lap("cli")
+    emit({"phase": "twod", "what": "launches", "total": total,
+          "summary": summary, "seconds_by_part": parts,
+          "seconds": time.perf_counter() - t_phase})
+    fail_unless(min(total[k] for k in TWOD_KERNELS) > 0
+                and total["conv3d_k3s1_fwd"] == 0,
+                "the 2D path did not run through every 2D kernel",
+                {"total": total})
+    for name in UNSHARDED_KERNELS:
+        kernels[name]["launches_twod"] = total[name]
+    for name, ln in heads.items():
+        kernels[name]["twod_site"] = {
+            "shape": ln["shape"], "ms": ln["ms"], "bound_ms": ln["bound_ms"],
+            "library_ms": ln["library_ms"], "max_abs_err": ln["max_abs_err"]}
+
+
+# ------------------------------------------------------ precision (extra)
+
+def phase_precision(torch, vt, K):
+    """The trained model's f32 path with the process at PyTorch's default
+    TF32 setting (on for cuDNN convolutions, as in a user's process):
+    eps_hat on the card against the CPU path, and the library convs'
+    device ms (and their kernels' names) over a forward at the sampler's
+    batch and over a train step. Run with ``--port DIR`` for an earlier
+    commit's port in the same call (before/after)."""
+    import os
+
+    from vdm4cdm_torch.cli._common import read_registry
+    from vdm4cdm_torch.train.checkpoint import load_params
+
+    os.chdir(ROOT)
+    entry = read_registry("configs/models_torch.yaml")[BLESSED]
+    cfg = vt.preset(entry["preset"])
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        models = {}
+        for dev in ("cuda", "cpu"):
+            models[dev] = vt.build_model(cfg, device=dev).eval()
+            load_params(entry["ckpt_dir"], models[dev],
+                        step=entry["ckpt_step"])
+        batch = next(iter(vt.build_datamodule(cfg, stage="test")
+                          .test_dataloader()))
+        s = torch.from_numpy(batch["conditioning"])
+        v = torch.from_numpy(batch["conditioning_values"][0])
+        z = torch.randn(s.shape, generator=torch.Generator().manual_seed(61))
+        t = torch.linspace(0.05, 0.95, s.shape[0])
+        with torch.inference_mode():
+            got = models["cuda"].eps_hat(z.cuda(), t.cuda(), s.cuda(),
+                                         [v.cuda()]).cpu()
+            ref = models["cpu"].eps_hat(z, t, s, [v])
+        abs_err, err = rel_err(got, ref)
+        vdm = models["cuda"]
+        sc, vc = s.cuda(), v.cuda()
+        fwd = phase_profile(
+            torch, lambda zz, tt: vdm.eps_hat(zz, tt, sc, [vc]),
+            tag="precision_forward", shape=tuple(s.shape[:-1]) + (1,))
+        model = vt.build_model(cfg, device="cuda")
+        load_params(entry["ckpt_dir"], model, step=entry["ckpt_step"])
+        tbatch = loss_batch(torch, cfg.data.cropsize, BLESSED_TRAIN_BATCH,
+                            "cuda", 62)
+        _, trainer = timed_train_steps(
+            torch, vt, K, model, tbatch, 1, 63, lr=cfg.run.learning_rate,
+            moment=None, ema_decay=cfg.run.ema_decay)
+        train = phase_profile_train(torch, *trainer, tag="precision_train")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "precision", "model": BLESSED, "process_tf32": True,
+          "eps_hat_max_abs_err": abs_err, "eps_hat_rel_err": err,
+          "max_abs_ref": ref.abs().max().item(),
+          "library_conv_forward_ms": fwd["by_category_ms"].get(LIBRARY_3D),
+          "library_conv_train_step_ms": train["by_category_ms"].get(
+              LIBRARY_3D),
+          "forward_library_kernels_ms": fwd["library_kernels_ms"],
+          "train_library_kernels_ms": train["library_kernels_ms"]})
+
+
 # ----------------------------------------------------------- sharded phase
 
 def zhalo_cases():
@@ -2708,7 +3228,13 @@ _TRITON = {"sums_kernel": "gn_sums", "apply_kernel": "gn_apply",
            "bwd_apply_kernel": "gn_bwd_apply"}
 
 
-def _category(name: str) -> str:
+LIBRARY_3D = "library conv (conv_in, downsample, conv_out)"
+# the 2D models' category of the same kernels: every 3x3 conv of a 2D model
+# is cuDNN's (the JAX package leaves 2D convs to XLA)
+LIBRARY_2D = "cuDNN conv (every 2D conv: fwd, dgrad, wgrad)"
+
+
+def _category(name: str, library: str = LIBRARY_3D) -> str:
     # conv3d_k3s1_{bf16,f32}_kernel and conv3d_dw_{bf16,f32}_kernel
     if "conv3d_k3s1_" in name and "_kernel" in name:
         return "conv3d_k3s1_fwd (forward and dx)"
@@ -2722,8 +3248,9 @@ def _category(name: str) -> str:
     if name in _TRITON:
         return _TRITON[name]
     if any(k in name for k in ("xmma", "cudnn", "convolve", "Nhwc", "Nchw",
-                               "wgrad", "dgrad")):
-        return "library conv (conv_in, downsample, conv_out)"
+                               "wgrad", "dgrad", "implicit_gemm",
+                               "cutlass")):
+        return library
     if "multi_tensor" in name or "foreach" in name.lower():
         return "optimizer (foreach)"
     if "nvjet" in name or "gemm" in name:
@@ -2732,7 +3259,8 @@ def _category(name: str) -> str:
 
 
 def phase_profile(torch, forward, tag="forward",
-                  shape=(1, MAIN_SIZE, MAIN_SIZE, MAIN_SIZE, 1)):
+                  shape=(1, MAIN_SIZE, MAIN_SIZE, MAIN_SIZE, 1),
+                  library=LIBRARY_3D):
     """Device time by kernel over two UNet forwards on z of ``shape``
     (default 128^3, batch 1; ``forward(z, t)``, after a profiled warm-up
     forward) and the device's idle share against an unprofiled forward's
@@ -2765,7 +3293,7 @@ def phase_profile(torch, forward, tag="forward",
             continue
         us = e.time_range.elapsed_us() / n_active
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        cat = _category(e.name)
+        cat = _category(e.name, library)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     (OUT_DIR / f"chip_smoke_profile_{tag}.txt").write_text(
@@ -2778,7 +3306,8 @@ def phase_profile(torch, forward, tag="forward",
                            if busy_ms > 0 else None),
             "by_category_ms": {k: us / 1e3 for k, us in sorted(
                 by_cat.items(), key=lambda kv: -kv[1])},
-            "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top]}
+            "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top],
+            "library_kernels_ms": library_kernels(by_name, library)}
     emit(line)
     return line
 
@@ -2807,7 +3336,8 @@ def conv_gflop(torch, forward, shape):
     return sum(flops) / 1e9, len(flops), sites
 
 
-def phase_profile_train(torch, state, step, batch, gen, tag="train"):
+def phase_profile_train(torch, state, step, batch, gen, tag="train",
+                        library=LIBRARY_3D):
     """Device time by kernel over one train step (after a profiled warm-up
     step) and the device's idle share against unprofiled steps; returns
     the device ms by category."""
@@ -2834,7 +3364,7 @@ def phase_profile_train(torch, state, step, batch, gen, tag="train"):
             continue
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        cat = _category(e.name)
+        cat = _category(e.name, library)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     (OUT_DIR / f"chip_smoke_profile_{tag}.txt").write_text(
@@ -2842,14 +3372,24 @@ def phase_profile_train(torch, state, step, batch, gen, tag="train"):
                                   row_limit=60))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     by_cat = {k: us / 1e3 for k, us in by_cat.items()}
-    emit({"phase": f"profile_{tag}", "step_ms": step_ms,
-          "device_busy_ms_per_step": busy_ms,
-          "idle_share": (max(0.0, 1.0 - busy_ms / step_ms)
-                         if busy_ms > 0 else None),
-          "by_category_ms": dict(sorted(by_cat.items(),
-                                        key=lambda kv: -kv[1])),
-          "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top]})
-    return by_cat
+    line = {"phase": f"profile_{tag}", "step_ms": step_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": (max(0.0, 1.0 - busy_ms / step_ms)
+                           if busy_ms > 0 else None),
+            "by_category_ms": dict(sorted(by_cat.items(),
+                                          key=lambda kv: -kv[1])),
+            "top_ms": [{"ms": us / 1e3, "name": n[:80]} for n, us in top],
+            "library_kernels_ms": library_kernels(by_name, library)}
+    emit(line)
+    return line
+
+
+def library_kernels(by_name, library):
+    """The library conv's kernels by name (their names tell which math
+    cuDNN ran: a ``tf32`` in the name is one TF32 pass), ms each."""
+    return {n[:120]: us / 1e3 for n, us in sorted(
+        by_name.items(), key=lambda kv: -kv[1])
+        if _category(n, library) == library}
 
 
 META = {
@@ -2954,6 +3494,12 @@ def main() -> int:
                   "phases (torch.backends.cudnn.allow_tf32 = False)"})
     phase_build(_build)
 
+    took, mark = {}, [time.perf_counter()]
+
+    def lap(name):  # wall seconds of each phase run, for the last lines
+        now = time.perf_counter()
+        took[name], mark[0] = now - mark[0], now
+
     heads = {}
     if "sites" in phases:
         blessed_sites(torch, K)
@@ -2961,30 +3507,47 @@ def main() -> int:
         mm1x1_sites(torch, K)
         norm_sites(torch, K)
         norm_sites(torch, K, TRAIN_BATCH)
+        lap("sites")
     if "kernels" in phases:
         heads = phase_kernels(torch, K)
+        lap("kernels")
     if "parity" in phases:
         phase_parity(torch, vt)
+        lap("parity")
     if "grads" in phases:
         phase_grads(torch, vt, K)
+        lap("grads")
     heads = heads or {k: {} for k in UNSHARDED_KERNELS}
     sampler = trainer = sfm_trainer = None
     bare = {}  # the bare train steps' s/step and launches, by family
     if "main" in phases:
         sampler = phase_main(torch, vt, K, heads)
+        lap("main")
     if "train" in phases:
         trainer = phase_train(torch, vt, K, heads, bare)
+        lap("train")
     if "sfm" in phases:
         sfm_trainer = phase_sfm(torch, vt, K, heads, bare)
+        lap("sfm")
     if "ddnm" in phases:
         phase_ddnm(torch, vt, K)
+        lap("ddnm")
     if "cli" in phases:
         phase_cli(torch, vt, K, heads, bare)
+        lap("cli")
     blessed = None
     if "blessed" in phases:
         blessed = phase_blessed(torch, vt, K, heads)
+        lap("blessed")
     if "sharded" in phases:
         phase_sharded(torch, heads)
+        lap("sharded")
+    if "twod" in phases:
+        phase_twod(torch, vt, K, heads)
+        lap("twod")
+    if "precision" in phases:
+        phase_precision(torch, vt, K)
+        lap("precision")
     # the profiler runs last, so that tracing cannot touch a timed phase
     if "profile" in phases:
         if sampler is not None:
@@ -3014,7 +3577,8 @@ def main() -> int:
                         "blessed_conv_cases()", line)
             emit(line)
             by_cat = phase_profile_train(torch, *trainer_b,
-                                         tag="blessed_train")
+                                         tag="blessed_train")[
+                                             "by_category_ms"]
             emit({"phase": "blessed_train_dw", "model": BLESSED,
                   "batch": BLESSED_TRAIN_BATCH,
                   "dw_ms_per_step": by_cat[_category("conv3d_dw_f32_kernel")],
@@ -3027,10 +3591,12 @@ def main() -> int:
             vs = [batch["conditioning_values"][0][:1]]
             phase_profile(torch, lambda z, t: sfm.velocity(z, t, vs, x0),
                           tag="sfm_forward")
+        lap("profile")
     if phases != list(PHASES):
         print(card, flush=True)
         emit({"phase": "partial", "phases": phases,
-              "seconds": time.perf_counter() - t_start})
+              "seconds": time.perf_counter() - t_start,
+              "seconds_by_phase": took})
         return 0
 
     emit({"kernels": [
@@ -3047,12 +3613,15 @@ def main() -> int:
          "launches_sampler": h.get("launches_sampler"),
          "launches_sfm_sampler": h.get("launches_sfm_sampler"),
          "launches_sharded": h["launches_sharded"],
+         "launches_twod": h.get("launches_twod"),
+         "twod_site": h.get("twod_site"),
          "max_abs_err": h["max_abs_err"], "ms": h["ms"],
          "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
          "bound_by": h["bound_by"], "library_ms": h["library_ms"]}
         for name, h in ((n, heads[n]) for n in META)]})
     print(card, flush=True)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": took})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -68,6 +68,10 @@ def test_yaml_round_trip_and_cross_loading(tmp_path):
 
 @pytest.mark.parametrize("name", PRESETS_3D)
 def test_build_model_shapes_equal_jax_init_params(name):
+    _build_model_shapes_equal_jax(name)
+
+
+def _build_model_shapes_equal_jax(name):
     over = {"data.cropsize": 8}
     cfg = tpresets.preset(name, **over)
     jmodel = jbuild_model(jpresets.preset(name, **over))
@@ -90,6 +94,7 @@ def test_build_model_shapes_equal_jax_init_params(name):
     assert net.v_conditioning_dims == (
         (cfg.data.conditioning_values,) if cfg.data.conditioning_values
         else ())
+    assert net.shape == (1,) + (8,) * cfg.model.ndim
 
 
 def jmodel_net(jmodel):
@@ -98,9 +103,9 @@ def jmodel_net(jmodel):
 
 @pytest.mark.parametrize("name", PRESETS_2D)
 def test_2d_presets_are_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="3D CUNet only"):
-        tconfig.build_model(tpresets.preset(name, **{"data.cropsize": 8}),
-                            device="cpu")
+    """The 2D presets are ported (they raised before the 2D slice): their
+    models have the JAX init tree's names and shapes, as the 3D ones."""
+    _build_model_shapes_equal_jax(name)
 
 
 def test_build_model_padding_rule_sigma_and_family_check():

@@ -9,7 +9,8 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 from .config import ExperimentConfig, build_datamodule, build_model
 from .diffusion import VDM, VDMLosses, ddnm_sample, make_schedule
 from .flows import SFM, SFMLosses
-from .interop import opt_state_from_jax, params_from_jax
+from .interop import (opt_state_from_jax, params_from_jax,
+                      params_from_torch, strip_and_rename)
 from .models import CUNet
 from .presets import PRESETS, preset
 from .train import (TrainConfig, Trainer, TrainState, init_ema,
@@ -21,4 +22,5 @@ __all__ = ["CUNet", "ExperimentConfig", "PRESETS", "SFM", "SFMLosses",
            "build_datamodule", "build_model", "ddnm_sample",
            "init_ema", "make_eval_step", "make_lr_schedule", "make_optimizer",
            "make_schedule", "make_train_step", "opt_state_from_jax",
-           "params_from_jax", "preset"]
+           "params_from_jax", "params_from_torch", "preset",
+           "strip_and_rename"]

@@ -1,15 +1,19 @@
-"""CUNet: the conditional 3D UNet behind the VDM, counterpart of
-``vdm4cdm_tpu/models/cunet.py``.
+"""CUNet: the conditional 2D/3D UNet behind the VDM and the SFM, counterpart
+of ``vdm4cdm_tpu/models/cunet.py``. The dimensionality comes from
+``shape=(C, *spatial)``: (C, H, W) builds the 2D net, (C, D, H, W) the 3D.
 
 Same constructor fields as the JAX module, same parameter names and layouts,
 so a JAX params tree maps onto ``state_dict`` by name alone
 (``interop/from_jax.py``):
 
-  * activations are channels-last (B, D, H, W, C) in ``compute_dtype``;
+  * activations are channels-last (B, *spatial, C) in ``compute_dtype``;
     embeddings, FiLM and the attention products stay f32; the output is f32;
-  * conv kernels are (k, k, k, Cin, Cout), dense kernels (in, out);
+  * conv kernels are (*k, Cin, Cout) with one k per spatial dim, dense
+    kernels (in, out);
   * each ResBlock's first conv emits the GroupNorm sums that its second norm
-    consumes, and its second conv adds the skip connection in-kernel;
+    consumes where the 3D hand kernel runs it (a 2D conv is cuDNN's, and
+    the norm takes its own sums), and its second conv adds the skip
+    connection;
   * every decoder skip join stays lazy (:class:`~vdm4cdm_torch.ops.pair.Pair`):
     joint-statistics GroupNorm, then a weight-split conv;
   * in train mode each ResBlock drops activations after its second norm's
@@ -24,7 +28,8 @@ so a JAX params tree maps onto ``state_dict`` by name alone
     {b}``, ``mid_0``, ``mid_1``, ``up_{l}_{b}``; the bottleneck counts as the
     last level) is in ``remat_blocks``. The recomputed forward regenerates
     the same dropout mask from (seed, index), so no RNG state is kept;
-  * ``ctx`` (a :class:`~vdm4cdm_torch.parallel.halo.ShardCtx`) splits the
+  * ``ctx`` (a :class:`~vdm4cdm_torch.parallel.halo.ShardCtx`; 3D only, a
+    2D net under a sharded one raises) splits the
     first spatial dim over the ``sp`` ranks, as the JAX module's ``ctx``
     does: every conv exchanges halo planes, every GroupNorm all-reduces its
     sums, the stride-2 downsamples need an even local size (so a rank's
@@ -105,15 +110,16 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """Parameters of a (k, k, k, Cin, Cout) conv; compute in ``conv_nd``."""
+    """Parameters of an ``nd``-dimensional (*(k,) * nd, Cin, Cout) conv;
+    compute in ``conv_nd``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding_mode: str = "zeros", zero_init: bool = False,
-                 generator=None, ctx: ShardCtx = NO_SHARD):
+                 generator=None, ctx: ShardCtx = NO_SHARD, nd: int = 3):
         super().__init__()
-        shape = (k, k, k, cin, cout)
+        shape = (k,) * nd + (cin, cout)
         w = (torch.zeros(shape) if zero_init
-             else _lecun_normal(shape, k ** 3 * cin, generator))
+             else _lecun_normal(shape, k ** nd * cin, generator))
         self.kernel = nn.Parameter(w)
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride = stride
@@ -165,20 +171,20 @@ class ResBlock(nn.Module):
     def __init__(self, cin: int, features: int, norm_groups: int,
                  dropout_prob: float, padding_mode: str,
                  emb_dim: Optional[int], generator=None,
-                 ctx: ShardCtx = NO_SHARD):
+                 ctx: ShardCtx = NO_SHARD, nd: int = 3):
         super().__init__()
         self.dropout_prob = dropout_prob
         self.GroupNorm_0 = GroupNorm(cin, norm_groups, act="silu", ctx=ctx)
         self.Conv_0 = Conv(cin, features, 3, padding_mode=padding_mode,
-                           generator=generator, ctx=ctx)
+                           generator=generator, ctx=ctx, nd=nd)
         self.film = (Dense(emb_dim, 2 * features, generator)
                      if emb_dim else None)
         self.GroupNorm_1 = GroupNorm(features, norm_groups, act="silu",
                                      ctx=ctx)
         self.Conv_1 = Conv(features, features, 3, padding_mode=padding_mode,
-                           zero_init=True, ctx=ctx)
+                           zero_init=True, ctx=ctx, nd=nd)
         self.skip_proj = (Conv(cin, features, 1, generator=generator,
-                               ctx=ctx)
+                               ctx=ctx, nd=nd)
                           if cin != features else None)
 
     def forward(self, x, emb, train: bool = False,
@@ -205,7 +211,8 @@ class ResBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Self-attention over all voxels, used at the bottleneck (``mid_attn``).
+    """Self-attention over all voxels (pixels in 2D), used at the bottleneck
+    (``mid_attn``).
     qkv kernel (C, 3, heads, hd), proj kernel (heads, hd, C); the products
     run in f32 as flax promotes them. Under a sharded ``ctx`` every rank
     gathers the normalized field, attends over all of it and keeps its own
@@ -243,9 +250,10 @@ class AttentionBlock(nn.Module):
 
 
 class CUNet(nn.Module):
-    """``shape`` is (C_out, *spatial), the whole field's; inputs and outputs
-    are channels-last (this rank's slab under a sharded ``ctx``).
-    ``device=None`` means CUDA (and raises without it)."""
+    """``shape`` is (C_out, *spatial), the whole field's, with 2 or 3
+    spatial dims; inputs and outputs are channels-last (this rank's slab
+    under a sharded ``ctx``, 3D only). ``device=None`` means CUDA (and
+    raises without it)."""
 
     def __init__(
         self,
@@ -270,8 +278,13 @@ class CUNet(nn.Module):
     ):
         super().__init__()
         dev = resolve_device(device)
-        if len(shape) != 4:
-            raise NotImplementedError("the port runs the 3D CUNet only")
+        if len(shape) not in (3, 4):
+            raise ValueError(f"shape {tuple(shape)}: need (C, H, W) or "
+                             "(C, D, H, W)")
+        nd = len(shape) - 1
+        if nd == 2 and ctx.sharded:
+            raise NotImplementedError("a 2D CUNet under sp sharding is not "
+                                      "ported yet (ROADMAP.md, queue 1)")
         self.shape = tuple(shape)
         self.chs = tuple(chs)
         self.s_conditioning_channels = s_conditioning_channels
@@ -301,10 +314,10 @@ class CUNet(nn.Module):
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, ng, dropout_prob, pm,
-                                           emb_dim, g, ctx))
+                                           emb_dim, g, ctx, nd))
 
         self.conv_in = Conv(shape[0] + s_conditioning_channels, c0, 3,
-                            padding_mode=pm, generator=g, ctx=ctx)
+                            padding_mode=pm, generator=g, ctx=ctx, nd=nd)
         skips, h = [c0], c0
         for level, ch in enumerate(self.chs):
             for blk in range(num_res_blocks):
@@ -314,7 +327,7 @@ class CUNet(nn.Module):
             if level < len(self.chs) - 1:
                 self.add_module(f"downsample_{level}",
                                 Conv(ch, ch, 3, stride=2, padding_mode=pm,
-                                     generator=g, ctx=ctx))
+                                     generator=g, ctx=ctx, nd=nd))
                 skips.append(ch)
         res("mid_0", h, self.chs[-1])
         if mid_attn:
@@ -330,10 +343,10 @@ class CUNet(nn.Module):
             if level > 0:
                 self.add_module(f"upsample_{level}",
                                 Conv(ch, ch, 3, padding_mode=pm, generator=g,
-                                     ctx=ctx))
+                                     ctx=ctx, nd=nd))
         self.norm_out = GroupNorm(h, ng, act="silu", ctx=ctx)
         self.conv_out = Conv(h, shape[0], 3, padding_mode=pm, zero_init=True,
-                             ctx=ctx)
+                             ctx=ctx, nd=nd)
         self.to(dev)
 
     def _block_levels(self):
@@ -366,10 +379,10 @@ class CUNet(nn.Module):
         train: bool = False,
         dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
-        """z (B, D, H, W, C); t (B,) or scalar in [0, 1]; s_conditioning
-        (B, D, H, W, Cs); v_conditionings list of (B, d_i). ``train=True``
+        """z (B, *spatial, C); t (B,) or scalar in [0, 1]; s_conditioning
+        (B, *spatial, Cs); v_conditionings list of (B, d_i). ``train=True``
         turns dropout on and then needs the step's integer ``dropout_seed``.
-        Returns f32 (B, D, H, W, C)."""
+        Returns f32 (B, *spatial, C)."""
         if train and self.dropout_prob > 0.0 and dropout_seed is None:
             raise ValueError("train=True with dropout needs a dropout_seed")
         if self.s_conditioning_channels:

@@ -1,9 +1,10 @@
-"""Channels-last 3D convolution: counterpart of ``vdm4cdm_tpu/ops/conv.py``.
+"""Channels-last 2D and 3D convolution: counterpart of
+``vdm4cdm_tpu/ops/conv.py``.
 
-``conv_nd`` takes x (B, D, H, W, Cin) or a :class:`Pair` and weights in the
-JAX layout (k, k, k, Cin, Cout):
+``conv_nd`` takes x (B, *spatial, Cin), 2 or 3 spatial dims, or a
+:class:`Pair`, and weights in the JAX layout (*k, Cin, Cout):
 
-  * k3/s1 with Cin, Cout multiples of 8 runs the hand kernel
+  * 3D k3/s1 with Cin, Cout multiples of 8 runs the hand kernel
     ``conv3d_k3s1_fwd`` (bias in-kernel, optional GroupNorm sums of the output,
     optional residual added before the cast) through :class:`Conv3dK3S1`,
     whose backward is hand kernels too: the forward kernel on the output
@@ -11,20 +12,33 @@ JAX layout (k, k, k, Cin, Cout):
   * a Pair splits the weights over its halves, conv(concat(a, b), W) =
     conv(a, W_a) + conv(b, W_b): the second half's conv takes the first
     half's output as its residual, so the joined input is never written and
-    the joined output's sums still come from the kernel;
-  * k1/s1 (the ResBlock ``skip_proj``) with Cin, Cout multiples of 8 runs
-    the hand kernel ``mm1x1_fwd`` (bias and the optional residual added
-    in-kernel before the one cast) through :class:`Conv1x1`, whose backward
-    is ``mm1x1_dx`` (the forward kernel on the transposed weight) and
-    ``mm1x1_dw``; over a Pair the second half's product takes the first
+    the joined output's sums still come from the kernel where it ran;
+  * k1/s1 (the ResBlock ``skip_proj``), 2D or 3D, with Cin, Cout multiples
+    of 8 runs the hand kernel ``mm1x1_fwd`` (bias and the optional residual
+    added in-kernel before the one cast) through :class:`Conv1x1`, whose
+    backward is ``mm1x1_dx`` (the forward kernel on the transposed weight)
+    and ``mm1x1_dw``; over a Pair the second half's product takes the first
     half's output as its residual, as for k3;
-  * everything else (``conv_in`` 2->32, ``conv_out`` 32->1, the stride-2
-    downsample, a k1 outside the multiples of 8) goes to ``torch.nn.functional.conv3d``, as the JAX package
-    leaves these to XLA. Circular padding there is an explicit wrap pad and a
-    valid conv; padding is the torch-style symmetric (k//2, k//2).
+  * everything else goes to cuDNN through :class:`LibraryConv`
+    (``F.conv2d`` / ``F.conv3d``), as the JAX package leaves it to XLA: every
+    k3 conv of a 2D model (the Pallas conv is 3D only,
+    ``vdm4cdm_tpu/ops/conv.py:95-99``), and in 3D ``conv_in`` 2->32,
+    ``conv_out`` 32->1, the stride-2 downsample and a k1 outside the
+    multiples of 8. The bias is added in the cuDNN call; a residual is one
+    more pass. Such a conv emits no sums (the next norm takes its own).
+    Its operands stay channels-last: the circular wrap pad is one copy in
+    (B, *spatial, C) (:func:`wrap_pad`), the NC* view of a contiguous
+    channels-last tensor is cuDNN's ``channels_last`` layout, and so is the
+    output, which returns to (B, *spatial, C) without a copy. On f32
+    operands each call, forward and both backward products, runs cuDNN with
+    TF32 off and in benchmark mode, and restores the process's settings
+    after (:func:`cudnn_settings`): the f32 function the CPU path and the
+    hand kernels compute, whatever PyTorch's default (TF32 on for cuDNN
+    convs).
+    Padding is the torch-style symmetric (k//2, k//2).
 
-Under spatial sharding (a sharded ``ctx``, ``vdm4cdm_tpu/ops/conv.py:111-150``)
-the split dim D is not padded locally: the slab is extended by the
+Under spatial sharding (a sharded ``ctx``, ``vdm4cdm_tpu/ops/conv.py:111-150``,
+3D only) the split dim D is not padded locally: the slab is extended by the
 neighbours' halo planes (``parallel.halo.halo_exchange``) and the conv runs
 valid in z, padded in-plane only:
 
@@ -36,14 +50,14 @@ valid in z, padded in-plane only:
     conv stands in;
   * k1: no halo, as unsharded;
   * everything else (``conv_in``, ``conv_out``, the stride-2 downsample, a k3
-    outside the multiples of 8): a (k//2, k//2) halo, then
-    ``torch.nn.functional.conv3d`` valid in z and padded in H and W (a wrap
-    pad for circular).
+    outside the multiples of 8): a (k//2, k//2) halo, then the library conv
+    valid in z and padded in H and W (a wrap pad for circular).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -140,19 +154,92 @@ class Conv1x1(torch.autograd.Function):
         return dx, dw, db, (ct if need_r else None)
 
 
-def _library_conv(x, w, stride, circular, pad_z=True):
-    """``F.conv3d`` with symmetric (k//2) padding; ``pad_z=False`` leaves D
-    unpadded (a haloed slab) and pads H and W only."""
-    xc = x.permute(0, 4, 1, 2, 3)
-    wc = w.to(x.dtype).permute(4, 3, 0, 1, 2)
-    pad = w.shape[0] // 2
-    pz = pad if pad_z else 0
-    if circular and pad:
-        y = F.conv3d(F.pad(xc, (pad, pad, pad, pad, pz, pz),
-                           mode="circular"), wc, stride=stride)
-    else:
-        y = F.conv3d(xc, wc, stride=stride, padding=(pz, pad, pad))
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+@contextlib.contextmanager
+def cudnn_settings(x: torch.Tensor):
+    """cuDNN's settings for one library conv on operands like ``x``, the
+    process's restored after the block. On f32 CUDA operands: TF32 off (the
+    f32 function; PyTorch's default lets cuDNN round f32 operands to TF32)
+    and benchmark mode on (cuDNN times its algorithms once for each new
+    shape and keeps the fastest; with TF32 off its own heuristic picked FFT
+    tilings for the 2D convs, 1.54 s of a 2D train step on an H100 against
+    0.35 s). Other operands (bf16, or on the CPU) leave every setting
+    alone."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.conv.fp32_precision
+    cudnn.benchmark, cudnn.conv.fp32_precision = True, "ieee"
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.conv.fp32_precision = saved
+
+
+_LIBRARY = {2: (F.conv2d, torch.channels_last),
+            3: (F.conv3d, torch.channels_last_3d)}
+
+
+class LibraryConv(torch.autograd.Function):
+    """(xc, wc, b, stride, padding) -> cuDNN's conv of the NC* operands with
+    the bias b (or None) added in the call, under :func:`cudnn_settings` in
+    the forward and in the backward (one ``aten.convolution_backward`` call
+    for dx, dw and db)."""
+
+    @staticmethod
+    def forward(ctx, xc, wc, b, stride, padding):
+        with cudnn_settings(xc):
+            y = _LIBRARY[xc.ndim - 2][0](xc, wc, b, stride=stride,
+                                         padding=padding)
+        ctx.save_for_backward(xc, wc)
+        ctx.conf = (stride, padding, b is not None)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        xc, wc = ctx.saved_tensors
+        stride, padding, has_bias = ctx.conf
+        nd = xc.ndim - 2
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        with cudnn_settings(xc):
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                ct, xc, wc, [wc.shape[0]] if has_bias else None,
+                [stride] * nd, list(padding), [1] * nd, False, [0] * nd, 1,
+                (need_x, need_w, has_bias and need_b))
+        return dx, dw, db, None, None
+
+
+def wrap_pad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
+    """Circular pad of channels-last x (B, *spatial, C) by ``pads[d]``
+    planes on both sides of spatial dim d, written once in x's layout: the
+    last spatial dim and the channels are one flat dim, padded by
+    ``pads[-1] * C`` elements."""
+    B, *sp, C = x.shape
+    flat = x.reshape(B, 1, *sp[:-1], sp[-1] * C)
+    pad = [pads[-1] * C] * 2
+    for p in reversed(pads[:-1]):
+        pad += [p, p]
+    y = F.pad(flat, pad, mode="circular")
+    return y.reshape(B, *(n + 2 * p for n, p in zip(sp, pads)), C)
+
+
+def _library_conv(x, w, b, stride, circular, pad_z=True):
+    """:class:`LibraryConv` with symmetric (k//2) padding on channels-last
+    x, bias b or None; ``pad_z=False`` leaves the first spatial dim unpadded (a haloed
+    slab)."""
+    nd = x.ndim - 2
+    pads = [w.shape[0] // 2] * nd
+    if not pad_z:
+        pads[0] = 0
+    if circular and any(pads):
+        x = wrap_pad(x, pads)
+        pads = [0] * nd
+    xc = x.permute(0, nd + 1, *range(1, nd + 1))
+    wc = w.to(x.dtype).permute(nd + 1, nd, *range(nd)).contiguous(
+        memory_format=_LIBRARY[nd][1])
+    y = LibraryConv.apply(xc, wc, None if b is None else b.to(x.dtype),
+                          stride, tuple(pads))
+    return y.permute(0, *range(2, nd + 2), 1).contiguous()
 
 
 def conv_nd(
@@ -165,10 +252,11 @@ def conv_nd(
     residual: Optional[torch.Tensor] = None,
     ctx: ShardCtx = NO_SHARD,
 ):
-    """y = conv(x, w) + b (+ residual). With ``emit_stats`` returns
-    (y, sums), sums the (B, 2, Cout) f32 (sum y, sum y^2) where the hand
-    kernel produced y, else None. Under a sharded ``ctx`` x is this rank's
-    slab of the split dim D, and so are y and the sums."""
+    """y = conv(x, w) + b (+ residual), x (B, *spatial, Cin) with 2 or 3
+    spatial dims. With ``emit_stats`` returns (y, sums), sums the (B, 2,
+    Cout) f32 (sum y, sum y^2) where the 3D hand kernel produced y, else
+    None. Under a sharded ``ctx`` (3D only) x is this rank's slab of the
+    split dim D, and so are y and the sums."""
     if padding_mode not in ("zeros", "circular"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if isinstance(x, Pair):
@@ -179,8 +267,11 @@ def conv_nd(
                      residual=residual, ctx=ctx)
         return conv_nd(x.b, w[..., ca:, :], None, stride, padding_mode,
                        emit_stats=emit_stats, residual=ya, ctx=ctx)
-    if x.ndim != 5 or w.ndim != 5:
-        raise NotImplementedError("the port runs 3D convolutions only")
+    nd = x.ndim - 2
+    if nd not in (2, 3) or w.ndim != x.ndim:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)}: need "
+                         "(B, *spatial, C) and (*k, Cin, Cout), 2 or 3 "
+                         "spatial dims")
     cin, cout = w.shape[-2], w.shape[-1]
     if x.shape[-1] != cin:
         raise ValueError(f"x has {x.shape[-1]} channels, w expects {cin}")
@@ -189,7 +280,7 @@ def conv_nd(
     sums = None
     if k == 1 and stride == 1 and supports(cin, cout):
         out = Conv1x1.apply(x, w, b, residual)
-    elif k == 3 and stride == 1 and supports(cin, cout):
+    elif nd == 3 and k == 3 and stride == 1 and supports(cin, cout):
         if ctx.sharded:
             x = halo_exchange(x, ctx, 1, 1, periodic=circular)
         out, sums = Conv3dK3S1.apply(x, w, b, residual, circular, emit_stats,
@@ -199,9 +290,8 @@ def conv_nd(
     else:
         if ctx.sharded and k > 1:
             x = halo_exchange(x, ctx, k // 2, k // 2, periodic=circular)
-        out = _library_conv(x, w, stride, circular, pad_z=not ctx.sharded)
-        if b is not None:
-            out = out + b.to(out.dtype)
+        out = _library_conv(x, w, b, stride, circular,
+                            pad_z=not ctx.sharded)
         if residual is not None:
             out = out + residual
     return (out, sums) if emit_stats else out

@@ -1,8 +1,10 @@
 """Down- and upsampling for the UNet: counterpart of
 ``vdm4cdm_tpu/ops/resample.py``.
 
+Both take channels-last (B, *spatial, C) with 2 or 3 spatial dims.
+
 Down: the stride-2 k3 convolution, which halves every spatial dim. Under
-spatial sharding it runs on a slab extended by one halo plane on each side
+spatial sharding (3D) it runs on a slab extended by one halo plane on each side
 (``ops/conv.py``), so each rank's share of D must be even: then rank r's
 output planes are exactly the global output's planes r * D / 2 onwards.
 
@@ -21,7 +23,7 @@ from .conv import conv_nd
 def downsample_conv(x: torch.Tensor, w: torch.Tensor, b=None,
                     padding_mode: str = "zeros",
                     ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
-    """Stride-2 conv of a channels-last (B, D, H, W, C) tensor (this rank's
+    """Stride-2 conv of a channels-last (B, *spatial, C) tensor (this rank's
     slab under a sharded ``ctx``)."""
     if ctx.sharded and x.shape[ctx.array_dim] % 2:
         raise ValueError(f"a rank's {x.shape[ctx.array_dim]} planes do not "
@@ -30,9 +32,9 @@ def downsample_conv(x: torch.Tensor, w: torch.Tensor, b=None,
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Nearest-neighbour upsample of a channels-last (B, D, H, W, C) tensor:
-    one broadcast and one copy."""
-    B, D, H, W, C = x.shape
-    v = x[:, :, None, :, None, :, None, :]
-    v = v.expand(B, D, factor, H, factor, W, factor, C)
-    return v.reshape(B, D * factor, H * factor, W * factor, C).contiguous()
+    """Nearest-neighbour upsample of a channels-last (B, *spatial, C)
+    tensor: one broadcast and one copy."""
+    B, *sp, C = x.shape
+    v = x.reshape(B, *(d for n in sp for d in (n, 1)), C)
+    v = v.expand(B, *(d for n in sp for d in (n, factor)), C)
+    return v.reshape(B, *(n * factor for n in sp), C).contiguous()
