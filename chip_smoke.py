@@ -1019,6 +1019,62 @@ def mm1x1_cases():
     ]
 
 
+def twod_mm1x1_cases():
+    """(H W at 256^2, K, N) of every ``skip_proj`` site of ``train_uc_c``
+    and ``trainSFM_c_uc`` (the decoder's per half of its Pair); the ``twod``
+    phase holds it equal to the sites a forward records."""
+    return [
+        (65536, 48, 48), (65536, 96, 48),                    # level 0
+        (16384, 48, 96), (16384, 96, 96), (16384, 192, 96),  # level 1
+        (4096, 96, 192), (4096, 192, 192), (4096, 384, 192),  # level 2
+        (1024, 192, 384), (1024, 384, 384),                  # level 3
+    ]
+
+
+def blessed_mm1x1_cases():
+    """(size, K, N) of every ``skip_proj`` site of the trained model
+    (``VDM_GRF_c_c_32``, chs 16-64, 32^3)."""
+    return [
+        (32, 16, 16), (32, 32, 16),
+        (16, 16, 32), (16, 32, 32), (16, 48, 32),
+        (8, 32, 48), (8, 48, 48), (8, 64, 48),
+        (4, 48, 64), (4, 64, 64),
+    ]
+
+
+def mm1x1_f32_sites(torch, K, which=("twod", "blessed")):
+    """Every f32 ``skip_proj`` site, checked and timed: the 2D models' at
+    batch 12 (256^2) and the trained model's at its train step's batch 8
+    (32^3), the forward with bias and residual, without the residual, the dx
+    pass and dw, each with its kernel ``ms``, device time alone
+    (``device_ms``), library and bound times (3xTF32 and FFMA). One ``site``
+    line each; returns the lines of the largest site of each kernel."""
+    heads, keys = {}, ("ms", "device_ms", "library_ms", "bound_ms",
+                       "bound_by", "bound_3xtf32_ms", "bound_ffma_ms")
+    cases = []
+    if "twod" in which:
+        cases += [(TWOD_VDM, int(round(math.sqrt(S))), cin, cout, 2,
+                   TWOD_BATCH) for S, cin, cout in twod_mm1x1_cases()]
+    if "blessed" in which:
+        cases += [(BLESSED, size, cin, cout, 3, BLESSED_TRAIN_BATCH)
+                  for size, cin, cout in blessed_mm1x1_cases()]
+    for model, size, cin, cout, nd, batch in cases:
+        fwd, dxl, dwl = check_mm1x1(torch, K, size, cin, cout, "float32",
+                                    batch, True, nd=nd)
+        emit({"phase": "site", "model": model, "kernel": "mm1x1",
+              "shape": [batch * size ** nd, cin, cout], "dtype": "float32",
+              "fwd": {k: fwd[k] for k in keys},
+              "no_residual": {"ms": fwd["ms_no_residual"],
+                              "library_ms": fwd["library_no_residual_ms"],
+                              "bound_ms": fwd["bound_no_residual_ms"]},
+              **{part: {k: ln[k] for k in keys}
+                 for part, ln in (("dx", dxl), ("dw", dwl))}})
+        for name, ln in (("mm1x1_fwd", fwd), ("mm1x1_dw", dwl)):
+            if name not in heads or ln["bound_ms"] > heads[name]["bound_ms"]:
+                heads[name] = ln
+    return heads
+
+
 def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed, nd=3):
     """``mm1x1_fwd`` with and without bias and residual, its use as the dx
     pass and ``mm1x1_dw`` against their plain versions, on ``nd``
@@ -1069,8 +1125,26 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed, nd=3):
             x2, r2, c2 = (t.reshape(rows, -1) for t in (x, res, ct))
             wd, bd = w.to(dtype), bias.to(dtype)
             wbytes = (cin + 1) * cout * 4  # the f32 weight and bias
-            b_ms, b_by = bound_ms(
-                flops, rows * (cin + 2 * cout) * elt + wbytes, dtype_name)
+            f32 = dtype_name == "float32"
+
+            def bounds(nbytes):
+                """The bound of the kernel's own path (in f32 3xTF32:
+                three TF32 products a multiply-add) and what sets it; in
+                f32 also the 3xTF32 and FFMA bounds apart."""
+                if not f32:
+                    return dict(zip(("bound_ms", "bound_by"),
+                                    bound_ms(flops, nbytes, dtype_name)))
+                b3 = bound_ms(3 * flops, nbytes, "tf32")
+                return {"bound_ms": b3[0], "bound_by": b3[1],
+                        "bound_3xtf32_ms": b3[0],
+                        "bound_ffma_ms": bound_ms(flops, nbytes,
+                                                  "float32")[0]}
+
+            def device(fn):
+                """f32 (the trained model's and the 2D sites, where the
+                host's launch rate can set ``ms``): the device time alone."""
+                return {"device_ms": graph_time_ms(fn)} if f32 else {}
+
             fwd.update(
                 ms=cuda_time_ms(lambda: K.mm1x1_fwd(x, w, bias, res), n),
                 plain_ms=cuda_time_ms(
@@ -1078,40 +1152,38 @@ def check_mm1x1(torch, K, size, cin, cout, dtype_name, batch, timed, nd=3):
                 library_ms=cuda_time_ms(
                     lambda: torch.addmm(r2, x2, wd).add_(bd), n),
                 library_call="torch.addmm(residual, x, w) then add_(bias)",
-                bound_ms=b_ms, bound_by=b_by,
+                **bounds(rows * (cin + 2 * cout) * elt + wbytes),
+                **device(lambda: K.mm1x1_fwd(x, w, bias, res)),
                 ms_no_residual=cuda_time_ms(
                     lambda: K.mm1x1_fwd(x, w, bias), n),
                 library_no_residual_ms=cuda_time_ms(
                     lambda: torch.addmm(bd, x2, wd), n),
-                bound_no_residual_ms=bound_ms(
-                    flops, rows * (cin + cout) * elt + wbytes, dtype_name)[0])
+                bound_no_residual_ms=bounds(
+                    rows * (cin + cout) * elt + wbytes)["bound_ms"])
             # the wrapper on the host: wall time of a call in a long run of
             # unsynchronized calls (the larger of host and device time)
             fwd.update(
                 wall_us_per_call=wall_us(
                     lambda: K.mm1x1_fwd(x, w, bias, res)))
             # dx: reads ct (rows, cout) and the f32 weight, writes (rows, cin)
-            b_ms, b_by = bound_ms(
-                flops, rows * (cin + cout) * elt + cin * cout * 4,
-                dtype_name)
             dxl.update(
                 ms=cuda_time_ms(lambda: K.mm1x1_dx(ct, w), n),
                 plain_ms=cuda_time_ms(lambda: K.mm1x1_plain(ct, w.t()),
                                       max(2, n // 4)),
                 library_ms=cuda_time_ms(lambda: torch.mm(c2, wd.t()), n),
                 library_call="torch.mm(ct, w.t()), w in ct's dtype",
-                bound_ms=b_ms, bound_by=b_by)
-            b_ms, b_by = bound_ms(
-                flops, rows * (cin + cout) * elt + (cin + 1) * cout * 4,
-                dtype_name)
+                **bounds(rows * (cin + cout) * elt + cin * cout * 4),
+                **device(lambda: K.mm1x1_dx(ct, w)))
             dwl.update(
                 ms=cuda_time_ms(lambda: K.mm1x1_dw(x, ct), n),
                 plain_ms=cuda_time_ms(lambda: K.mm1x1_dw_plain(x, ct),
                                       max(2, n // 4)),
                 library_ms=cuda_time_ms(
                     lambda: (x2.t() @ c2, c2.sum(0)), n),
-                library_call="x.T @ ct and ct.sum(0) (two calls, bf16 out)",
-                bound_ms=b_ms, bound_by=b_by)
+                library_call=("x.T @ ct and ct.sum(0) (two calls, out in x's "
+                              "dtype)"),
+                **bounds(rows * (cin + cout) * elt + (cin + 1) * cout * 4),
+                **device(lambda: K.mm1x1_dw(x, ct)))
     for line in (fwd, dxl, dwl):
         emit(line)
     return fwd, dxl, dwl
@@ -1274,6 +1346,13 @@ def check_plans(torch, K):
                 for b in (1, TRAIN_BATCH, SFM_BATCH)
                 for size, cin, cout in mm1x1_cases()
                 for k, n in ((cin, cout), (cout, cin))]
+    mm_sites += [(TWOD_BATCH * S, k, n)
+                 for S, cin, cout in twod_mm1x1_cases()
+                 for k, n in ((cin, cout), (cout, cin))]
+    mm_sites += [(b * size ** 3, k, n)
+                 for b in (BLESSED_TRAIN_BATCH, BLESSED_REPS)
+                 for size, cin, cout in blessed_mm1x1_cases()
+                 for k, n in ((cin, cout), (cout, cin))]
     for rows, k, n in mm_sites:
         for dtype in (torch.bfloat16, torch.float32):
             for has_res in (False, True):
@@ -1282,8 +1361,14 @@ def check_plans(torch, K):
                 if got != want:
                     bad.append({"mm1x1": [rows, k, n, str(dtype), has_res],
                                 "compiled": got, "python": want})
+        want = L.dw_plan(rows, k, n, sms=sms)
+        got = L.compiled_dw_plan(rows, k, n)
+        if got != want:
+            bad.append({"mm1x1_dw": [rows, k, n], "compiled": got,
+                        "python": want})
     line = {"phase": "plans", "checked": 4 * len(sites),
-            "mm1x1_checked": 4 * len(mm_sites), "sms": sms,
+            "mm1x1_checked": 4 * len(mm_sites),
+            "mm1x1_dw_checked": len(mm_sites), "sms": sms,
             "mismatches": bad[:4]}
     fail_unless(not bad, "launch plans differ", line)
     emit(line)
@@ -2325,6 +2410,9 @@ def phase_blessed(torch, vt, K, kernels):
           "size": cfg.data.cropsize, "batch": BLESSED_TRAIN_BATCH, **facts})
     for name in UNSHARDED_KERNELS:
         kernels[name]["launches_blessed_train"] = facts["launches"][name]
+    # 6. its f32 skip projections, one site line each (device time beside
+    # the launch-rate-bound ms)
+    mm1x1_f32_sites(torch, K, ("blessed",))
     # the sampler's forward at the campaign's batch, for the profile phase
     reps = BLESSED_REPS
     return (vdm, s[:1].expand(reps, -1, -1, -1, -1).cuda(),
@@ -2597,21 +2685,10 @@ def twod_sites(torch, vt, K):
                          ("gn_bwd_sums", bwd[0]), ("gn_bwd_apply", bwd[1])):
             if name not in heads or ln["bound_ms"] > heads[name]["bound_ms"]:
                 heads[name] = ln
-    for S, cin, cout in mm:
-        size = int(round(math.sqrt(S)))
-        fwd, dxl, dwl = check_mm1x1(torch, K, size, cin, cout, dt, B, True,
-                                    nd=2)
-        emit({"phase": "site", "model": TWOD_VDM, "kernel": "mm1x1",
-              "shape": [B * S, cin, cout], "dtype": dt,
-              "fwd": {k: fwd[k] for k in keys},
-              "no_residual": {"ms": fwd["ms_no_residual"],
-                              "library_ms": fwd["library_no_residual_ms"],
-                              "bound_ms": fwd["bound_no_residual_ms"]},
-              **{part: {k: ln[k] for k in keys}
-                 for part, ln in (("dx", dxl), ("dw", dwl))}})
-        for name, ln in (("mm1x1_fwd", fwd), ("mm1x1_dw", dwl)):
-            if name not in heads or ln["bound_ms"] > heads[name]["bound_ms"]:
-                heads[name] = ln
+    fail_unless(mm == sorted(twod_mm1x1_cases()),
+                "the 2D forward's skip_proj sites are not twod_mm1x1_cases()",
+                {"recorded": mm})
+    heads.update(mm1x1_f32_sites(torch, K, ("twod",)))
     size, ca, cb, groups = TWOD_PAIR
     check_pair_norm(torch, size, ca, cb, groups, dt, nd=2)
     check_pair_norm_bwd(torch, size, ca, cb, groups, dt, nd=2)
@@ -3240,10 +3317,11 @@ def _category(name: str, library: str = LIBRARY_3D) -> str:
         return "conv3d_k3s1_fwd (forward and dx)"
     if "conv3d_dw_" in name and "_kernel" in name:
         return "conv3d_k3s1_dw"
-    # mm1x1_fwd_tc_kernel (persistent, bf16) and mm1x1_fwd_kernel
+    # mm1x1_fwd_{tc,f32}_kernel (persistent, bf16 / f32) and
+    # mm1x1_fwd_kernel; mm1x1_dw_kernel (bf16) and mm1x1_dw_f32_kernel
     if "mm1x1_fwd" in name and "_kernel" in name:
         return "mm1x1_fwd (forward and dx)"
-    if "mm1x1_dw_kernel" in name:
+    if "mm1x1_dw" in name and "_kernel" in name:
         return "mm1x1_dw"
     if name in _TRITON:
         return _TRITON[name]
@@ -3505,6 +3583,7 @@ def main() -> int:
         blessed_sites(torch, K)
         conv_sites(torch, K)
         mm1x1_sites(torch, K)
+        mm1x1_f32_sites(torch, K)
         norm_sites(torch, K)
         norm_sites(torch, K, TRAIN_BATCH)
         lap("sites")

@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package: seeded numpy inputs and parameter trees, handed to both."""
 
+import jax
 import numpy as np
 
 
@@ -35,3 +36,20 @@ def randomize_tree(tree, seed: int, scale: float = 1.0):
         return np.asarray(v, np.float32)
 
     return walk(tree, ())
+
+
+def seeded_tree(model, seed: int):
+    """``model.init_params`` with every leaf replaced as
+    :func:`randomize_tree` replaces it, without running the initialization:
+    the tree's structure and shapes come from ``jax.eval_shape``, and the
+    schedule's values (which ``randomize_tree`` perturbs rather than
+    replaces) from its own init. Equal, leaf for leaf, to
+    ``randomize_tree`` of an eager ``init_params``, which runs the whole
+    network op by op on the CPU."""
+    shapes = jax.eval_shape(model.init_params, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(
+        lambda leaf: np.zeros(leaf.shape, np.float32), shapes)
+    if "gamma" in tree:
+        tree["gamma"] = jax.tree_util.tree_map(
+            np.asarray, model.schedule.init_params())
+    return randomize_tree(tree, seed)

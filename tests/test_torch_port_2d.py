@@ -32,7 +32,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_port_util import randomize_tree
+from _torch_port_util import seeded_tree
 from vdm4cdm_tpu.diffusion import VDM as JVDM
 from vdm4cdm_tpu.diffusion import ddnm_sample as jddnm_sample
 from vdm4cdm_tpu.diffusion import make_schedule as jmake_schedule
@@ -89,22 +89,9 @@ def _np(tree):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
 
 
-def _jtree(model, seed):
-    """The model's params tree with seeded values: the structure from
-    ``eval_shape`` (no eager init), the schedule's from its own init, which
-    ``randomize_tree`` perturbs."""
-    shapes = jax.eval_shape(model.init_params, jax.random.PRNGKey(0))
-    tree = jax.tree_util.tree_map(
-        lambda leaf: np.zeros(leaf.shape, np.float32), shapes)
-    if "gamma" in tree:
-        tree["gamma"] = jax.tree_util.tree_map(
-            np.asarray, model.schedule.init_params())
-    return randomize_tree(tree, seed)
-
-
 def _vdm_pair(seed, schedule=("learned_linear", -13.3, 13.3), **kw):
     jv = JVDM(JCUNet(**_kw(**kw)), jmake_schedule(*schedule))
-    tree = _jtree(jv, seed)
+    tree = seeded_tree(jv, seed)
     tv = vt.VDM(vt.CUNet(**_kw(**kw), device="cpu"),
                 vt.make_schedule(*schedule, device="cpu"))
     tv.load_state_dict(vt.params_from_jax(tree, tv), strict=False)
@@ -114,7 +101,7 @@ def _vdm_pair(seed, schedule=("learned_linear", -13.3, 13.3), **kw):
 def _sfm_pair(seed, sigma=0.0):
     kw = _kw("zeros", mid_attn=True)
     js = JSFM(JCUNet(**kw), sigma=sigma)
-    tree = _jtree(js, seed)
+    tree = seeded_tree(js, seed)
     ts = vt.SFM(vt.CUNet(**kw, device="cpu"), sigma=sigma)
     ts.load_state_dict(vt.params_from_jax(tree, ts))
     return js, tree, ts

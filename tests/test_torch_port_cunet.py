@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import randomize_tree
+from _torch_port_util import seeded_tree
 from vdm4cdm_tpu.diffusion import VDM as JVDM
 from vdm4cdm_tpu.diffusion import make_schedule as jmake_schedule
 from vdm4cdm_tpu.models import CUNet as JCUNet
@@ -21,6 +21,16 @@ from vdm4cdm_torch.models.cunet import timestep_embedding
 SHAPE = (1, 8, 8, 8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The module's torch work is small; two threads keep it off the cores
+    that the other test workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _kw(padding, mid_attn):
     return dict(shape=SHAPE, chs=(8, 16, 16, 16), s_conditioning_channels=1,
                 v_conditioning_dims=(6,), norm_groups=4, mid_attn=mid_attn,
@@ -30,9 +40,7 @@ def _kw(padding, mid_attn):
 def _pair(padding, mid_attn, seed=1):
     kw = _kw(padding, mid_attn)
     jv = JVDM(JCUNet(**kw), jmake_schedule("learned_linear", -13.3, 13.3))
-    tree = jax.tree_util.tree_map(np.asarray,
-                                  jv.init_params(jax.random.PRNGKey(0)))
-    tree = randomize_tree(tree, seed)
+    tree = seeded_tree(jv, seed)
     tv = vt.VDM(vt.CUNet(**kw, device="cpu"),
                 vt.make_schedule("learned_linear", device="cpu"))
     tv.load_state_dict(vt.params_from_jax(tree, tv))

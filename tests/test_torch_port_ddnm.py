@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import randomize_tree
+from _torch_port_util import seeded_tree
 from vdm4cdm_tpu.diffusion import VDM as JVDM
 from vdm4cdm_tpu.diffusion import ddnm_sample as jddnm_sample
 from vdm4cdm_tpu.diffusion import make_schedule as jmake_schedule
@@ -33,9 +33,7 @@ SHAPE = (1, 8, 8, 8, 1)
 @pytest.fixture(scope="module")
 def setup():
     jv = JVDM(JCUNet(**KW), jmake_schedule("fixed_linear", -4.0, 4.0))
-    tree = jax.tree_util.tree_map(np.asarray,
-                                  jv.init_params(jax.random.PRNGKey(0)))
-    tree = randomize_tree(tree, 51)
+    tree = seeded_tree(jv, 51)
     tv = vt.VDM(vt.CUNet(**KW, device="cpu"),
                 vt.make_schedule("fixed_linear", -4.0, 4.0, device="cpu"))
     tv.load_state_dict(vt.params_from_jax(tree, tv), strict=False)

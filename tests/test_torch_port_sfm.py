@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import randomize_tree
+from _torch_port_util import seeded_tree
 from vdm4cdm_tpu.flows import SFM as JSFM
 from vdm4cdm_tpu.models import CUNet as JCUNet
 from vdm4cdm_tpu.train import TrainState as JTrainState
@@ -40,9 +40,7 @@ def _jax_model(sigma, **kw):
 
 
 def _tree(js, seed=31):
-    tree = jax.tree_util.tree_map(np.asarray,
-                                  js.init_params(jax.random.PRNGKey(0)))
-    return randomize_tree(tree, seed)
+    return seeded_tree(js, seed)
 
 
 def _torch_model(tree, sigma, **kw):

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import randomize_tree
+from _torch_port_util import seeded_tree
 from vdm4cdm_tpu.diffusion import VDM as JVDM
 from vdm4cdm_tpu.diffusion import make_schedule as jmake_schedule
 from vdm4cdm_tpu.models import CUNet as JCUNet
@@ -38,14 +38,22 @@ KW = dict(shape=(1, 8, 8, 8), chs=(8, 16), s_conditioning_channels=1,
 B = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The module's torch work is small; two threads keep it off the cores
+    that the other test workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_model():
     return JVDM(JCUNet(**KW), jmake_schedule("learned_linear", -13.3, 13.3))
 
 
 def _tree(jv, seed=21):
-    tree = jax.tree_util.tree_map(np.asarray,
-                                  jv.init_params(jax.random.PRNGKey(0)))
-    return randomize_tree(tree, seed)
+    return seeded_tree(jv, seed)
 
 
 def _torch_model(tree):
@@ -95,10 +103,11 @@ def test_loss_fields_and_param_grads_match_jax():
     tree = _tree(jv)
     batch = _batch()
     key = jax.random.PRNGKey(5)
-    (_, want), jgrads = jax.value_and_grad(
+    # compiled once: op by op, the JAX CPU backward takes minutes
+    (_, want), jgrads = jax.jit(jax.value_and_grad(
         lambda p: (lambda l: (l.loss, l))(jv.loss(p, _to_jax(batch), key,
                                                    train=True)),
-        has_aux=True)(jax.tree_util.tree_map(jnp.asarray, tree))
+        has_aux=True))(jax.tree_util.tree_map(jnp.asarray, tree))
     t, eps = _jax_draws(key, batch["x"].shape)
 
     tv = _torch_model(tree)

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import randomize_tree
+from _torch_port_util import seeded_tree
 from vdm4cdm_tpu.diffusion import VDM as JVDM
 from vdm4cdm_tpu.diffusion import make_schedule as jmake_schedule
 from vdm4cdm_tpu.diffusion.schedule import alpha_sigma as jalpha_sigma
@@ -29,9 +29,7 @@ KW = dict(shape=(1, 8, 8, 8), chs=(8, 16, 16, 16), s_conditioning_channels=1,
 @pytest.fixture(scope="module")
 def models():
     jv = JVDM(JCUNet(**KW), jmake_schedule("learned_linear", -13.3, 13.3))
-    tree = jax.tree_util.tree_map(np.asarray,
-                                  jv.init_params(jax.random.PRNGKey(0)))
-    tree = randomize_tree(tree, 11)
+    tree = seeded_tree(jv, 11)
     tv = vt.VDM(vt.CUNet(**KW, device="cpu"),
                 vt.make_schedule("learned_linear", device="cpu"))
     tv.load_state_dict(vt.params_from_jax(tree, tv))

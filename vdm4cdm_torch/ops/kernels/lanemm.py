@@ -11,18 +11,22 @@ Here rows are plain channels-last voxels: x is (..., K) read as (R, K), the
 weight is the plain (K, N) matrix, and any K, N that are multiples of 8 are in
 scope (16-byte vectors), as for the 3x3x3 conv.
 
-The kernels are ``csrc/lanemm.cu``. Every site is bound by bytes on the H100
-(at most 128 operations per byte moved, under the card's ~295), so the
-forward folds the bias, an optional residual (the first half's output of a
-split pair projection) and the one rounding to x's dtype into its epilogue,
-and reads each operand once. In bf16 up to 256 channels it runs persistent
-CTAs that hold the whole weight in shared memory and stream row tiles
-through a ring of stages (:func:`fwd_plan` mirrors its launch plan); the
-weight is read as it lies, (K, N) or, with ``w_transposed``, (N, K), f32 or
-bf16, so neither the forward nor the dx pass copies it. The weight gradient
-splits the rows over blocks that join their f32 tiles with atomics (the sum
-order is run-dependent), with the bias gradient riding along. The source
-file says more.
+The kernels are ``csrc/lanemm.cu``. Every site up to 192 x 96 channels is
+bound by bytes on the H100 (in bf16 at most 128 operations per byte moved,
+under the card's ~295), so the forward folds the bias, an optional residual
+(the first half's output of a split pair projection) and the one rounding to
+x's dtype into its epilogue, and reads each operand once. It runs
+persistent CTAs that hold the weight in shared memory and stream row tiles
+through a ring of stages (:func:`fwd_plan` mirrors the launch plans): in
+bf16 up to 256 channels the whole weight on mma.sync; in f32 the weight, or
+the slice of its columns a CTA owns, split once into TF32 hi and lo, three
+TF32 products a step (3xTF32, f32 accuracy). The weight is read as it lies,
+(K, N) or, with ``w_transposed``, (N, K), f32 or bf16, so neither the
+forward nor the dx pass copies it. The weight gradient splits the rows over
+CTAs that join their f32 tiles with atomics (the sum order is
+run-dependent), with the bias gradient riding along: in f32 one CTA an SM
+holds the whole (K, N) up to 192 x 96 and reads each row once, on 3xTF32
+(:func:`dw_plan`). The source file says more.
 
 The plain versions compute the same functions with matrix products in f32.
 CPU tensors go to them; CUDA tensors go to the kernels.
@@ -40,9 +44,9 @@ from ._common import (DTYPE_CODE, check_aligned, check_forward_only,
                       check_operand, on_cuda)
 from .conv3d import supports
 
-__all__ = ["FwdPlan", "compiled_plan", "fwd_plan", "mm1x1_dw",
-           "mm1x1_dw_plain", "mm1x1_dx", "mm1x1_fwd", "mm1x1_plain",
-           "supports"]
+__all__ = ["DwPlan", "FwdPlan", "compiled_dw_plan", "compiled_plan",
+           "dw_plan", "fwd_plan", "mm1x1_dw", "mm1x1_dw_plain", "mm1x1_dx",
+           "mm1x1_fwd", "mm1x1_plain", "supports"]
 
 
 def mm1x1_plain(x, w, bias=None, residual=None, w_transposed=False):
@@ -71,8 +75,9 @@ def _fn(name, argtypes):
     return c_function("lanemm.cu", name, argtypes)
 
 
-# ------------------------------------------------------------ launch plan
-# The rules of csrc/lanemm.cu (``make_fwd_plan``), field for field.
+# ----------------------------------------------------------- launch plans
+# The rules of csrc/lanemm.cu (``make_fwd_plan``, ``make_dw_plan``), field
+# for field.
 
 SMEM_SM = 233472        # shared memory of an SM (H100)
 SMEM_CTA = 232448       # the most a CTA may use
@@ -81,6 +86,10 @@ SMS = 132               # the H100 SXM's streaming multiprocessors
 THREADS = 256
 ROWS_WIDE = 128         # kind 0: rows a block
 TC_MAX = 256            # kind 1 takes bf16 with K, N up to this
+F32_WMAX = 110592       # kind 2: the most bytes of a split weight slice
+# f32 weight gradient: the largest (K, N) tile a CTA owns, the most m16 /
+# n8 fragments of a warp, the most rows a warp's register sums run over
+DW_KC, DW_NC, DW_MT, DW_NT, DW_CHAIN_ROWS = 192, 96, 6, 6, 4096
 
 
 class FwdPlan(NamedTuple):
@@ -88,9 +97,15 @@ class FwdPlan(NamedTuple):
     persistent CTAs (``ctas_per_sm`` an SM) walk the row tiles of ``bm``
     rows, CTA c taking tiles c, c + grid, ...; ``kp`` and ``np`` are K and N
     padded to 32, 64, 128 or 256; ``stages`` tiles in the ring; ``smem`` the
-    dynamic shared memory of a CTA. Kind 0 (f32, wider widths): one block
-    for each of ``grid`` = row tiles x N tiles, ``kp`` the K chunk, ``np``
-    the N tile."""
+    dynamic shared memory of a CTA. Kind 2 (f32): the same walk per column
+    slice, CTA c owning slice c % ``slices`` (``slice_n`` columns) and row
+    tiles c // slices, + grid // slices, ...; ``kp`` is the staged x row's
+    stride (K + 4 floats), ``np`` the columns a CTA computes (8 NT
+    ``warps_n``, NT the n8 tiles a warp), ``warps_k`` the warps that share
+    K (8 / (warps_n warps_k) along the rows), ``grid`` -1 where no plan
+    fits.
+    Kind 0 (bf16 past 256 channels): one block for each of ``grid`` = row
+    tiles x N tiles, ``kp`` the K chunk, ``np`` the N tile."""
     kind: int
     bm: int
     kp: int
@@ -100,6 +115,33 @@ class FwdPlan(NamedTuple):
     grid: int
     threads: int
     smem: int
+    slices: int = 0
+    slice_n: int = 0
+    warps_n: int = 0
+    warps_k: int = 0
+
+
+class DwPlan(NamedTuple):
+    """The f32 ``mm1x1_dw``'s launch: ``grid`` = ``runs`` x ``tiles`` CTAs,
+    one an SM, CTA b owning (K, N) tile b % tiles (``kc`` x ``nc``
+    channels, ``tiles_n`` of them along N) and the rows of run b // tiles
+    (``run_chunks`` chunks of ``br`` rows, the last run cut at R);
+    ``stages`` chunks in its ring, ``smem`` bytes; its 8 warps split the
+    tile ``warps_k`` x ``warps_n`` and take the chunk's 8-row steps in turn
+    over the remaining 8 / (warps_k warps_n) row groups."""
+    kc: int
+    nc: int
+    tiles: int
+    tiles_n: int
+    br: int
+    stages: int
+    run_chunks: int
+    runs: int
+    grid: int
+    threads: int
+    smem: int
+    warps_k: int
+    warps_n: int
 
 
 def _pad_width(v: int) -> int:
@@ -109,45 +151,148 @@ def _pad_width(v: int) -> int:
     return p
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ctas_and_stages(fixed: int, stage: int):
+    """(CTAs an SM, stages): the most stages (2-4) that let two CTAs share
+    an SM, else one CTA with the most that fit."""
+    per_sm, s = 2, 4
+    while s > 2 and per_sm * (fixed + s * stage + SMEM_RESERVED) > SMEM_SM:
+        s -= 1
+    if per_sm * (fixed + s * stage + SMEM_RESERVED) > SMEM_SM:
+        per_sm, s = 1, 4
+        while s > 2 and fixed + s * stage > SMEM_CTA:
+            s -= 1
+    return per_sm, s
+
+
+def f32_ldr(npad: int) -> int:
+    """Kind 2: the residual tile's row stride in floats (8 or 24 mod 32)."""
+    return npad + (8 if npad % 16 == 0 else 0)
+
+
+def _f32_plan(R: int, K: int, N: int, has_res: bool, sms: int) -> FwdPlan:
+    """Kind 2: the fewest N slices, then the fewest warps across a slice,
+    then across K, whose split weight slice fits ``F32_WMAX`` beside the K
+    shares' sums and two stages of rows."""
+    for ns in range(1, N // 8 + 1):
+        nb = _cdiv(_cdiv(N, ns), 8) * 8
+        for wn in (1, 2, 4, 8):
+            for wk in (1, 2, 4, 8):
+                nt = _cdiv(nb, 8 * wn)
+                if wn * wk > 8 or wk > K // 8 or nt > 8:
+                    continue
+                npad, tm = 8 * nt * wn, 16 * (8 // (wn * wk))
+                fixed = 8 * K * npad + 4 * npad + (wk - 1) * tm * npad * 4
+                stage = tm * (K + 4) * 4 + (tm * f32_ldr(npad) * 4 if has_res
+                                            else 0)
+                if 8 * K * npad > F32_WMAX or fixed + 2 * stage > SMEM_CTA:
+                    continue
+                per_sm, s = _ctas_and_stages(fixed, stage)
+                slices = _cdiv(N, nb)
+                room = max(1, sms * per_sm // slices)
+                grid = min(_cdiv(R, tm), room) * slices
+                return FwdPlan(2, tm, K + 4, npad, s, per_sm, grid, THREADS,
+                               fixed + s * stage, slices, nb, wn, wk)
+    return FwdPlan(2, 0, K + 4, 0, 0, 0, -1, THREADS, 0)
+
+
 def fwd_plan(dtype, R: int, K: int, N: int, has_res: bool,
              sms: int = SMS) -> FwdPlan:
     """The forward kernel's plan for x (R, K) -> (R, N), with or without a
     residual, on a card of ``sms`` SMs."""
+    if dtype == torch.float32:
+        return _f32_plan(R, K, N, has_res, sms)
     if dtype == torch.bfloat16 and K <= TC_MAX and N <= TC_MAX:
         kp, np_ = _pad_width(K), _pad_width(N)
         wn = np_ // 64 if np_ > 64 else 1  # warps across N, 16 rows each
         bm = 16 * (8 // wn)
         stage = bm * kp * 2 + (bm * np_ * 2 if has_res else 0)
         fixed = np_ * kp * 2 + np_ * 4 + bm * np_ * 2
-        per_sm, s = 2, 4
-        while s > 2 and per_sm * (fixed + s * stage + SMEM_RESERVED) > SMEM_SM:
-            s -= 1
-        if per_sm * (fixed + s * stage + SMEM_RESERVED) > SMEM_SM:
-            per_sm, s = 1, 4
-            while s > 2 and fixed + s * stage > SMEM_CTA:
-                s -= 1
+        per_sm, s = _ctas_and_stages(fixed, stage)
         grid = min(math.ceil(R / bm), sms * per_sm)
         return FwdPlan(1, bm, kp, np_, s, per_sm, grid, THREADS,
                        fixed + s * stage)
-    bk = 32 if dtype == torch.bfloat16 else 16
     bn = 32 if N <= 32 else 64
     tiles = math.ceil(R / ROWS_WIDE) * math.ceil(N / bn)
-    return FwdPlan(0, ROWS_WIDE, bk, bn, 2, 0,
+    return FwdPlan(0, ROWS_WIDE, 32, bn, 2, 0,
                    tiles if tiles <= 0x7FFFFFFF else -1, THREADS, 0)
 
 
-def compiled_plan(dtype, R: int, K: int, N: int, has_res: bool) -> FwdPlan:
-    """The plan as the compiled source reports it for this card; on the
-    machine with the card."""
-    buf = (ctypes.c_int * len(FwdPlan._fields))()
-    i = ctypes.c_int
-    fn = _fn("mm1x1_fwd_plan", [i, ctypes.c_longlong, i, i, i, i,
-                                ctypes.c_void_p])
-    err = fn(DTYPE_CODE[dtype], R, K, N, int(bool(has_res)), 0,
-             ctypes.addressof(buf))
+def dw_ld(w: int) -> int:
+    """The f32 weight gradient's staged row stride in floats for a tile w
+    channels wide (8 or 24 mod 32)."""
+    return w + (8 if w % 16 == 0 else 0)
+
+
+def dw_runs(R: int, br: int, target: int) -> int:
+    """The runs that R rows in chunks of ``br`` make, a run ceil(chunks /
+    target) chunks long."""
+    chunks = _cdiv(R, br)
+    return _cdiv(chunks, _cdiv(chunks, target))
+
+
+def dw_plan(R: int, K: int, N: int, sms: int = SMS) -> DwPlan:
+    """The f32 weight gradient's plan for x (R, K), ct (R, N) on a card of
+    ``sms`` SMs (bf16 runs PR 3's blocks of a (K, N) tile)."""
+    kt, nt = _cdiv(K, DW_KC), _cdiv(N, DW_NC)
+    kc, nc = _cdiv(_cdiv(K, kt), 8) * 8, _cdiv(_cdiv(N, nt), 8) * 8
+    tiles_n = _cdiv(N, nc)
+    tiles = _cdiv(K, kc) * tiles_n
+    warps_k, warps_n = _cdiv(kc, 16 * DW_MT), 1
+    while _cdiv(nc // 8, warps_n) > DW_NT:
+        warps_n *= 2
+    # the chunk (a multiple of 32 rows, whole 8-row steps for each row
+    # group) and ring depth that keep the most bytes in flight, a longer
+    # chunk only where it leaves 15/16 of the shortest chunk's runs or more
+    row_bytes = (dw_ld(kc) + dw_ld(nc)) * 4
+    row_groups = 8 // (warps_k * warps_n)
+    target = max(1, sms // tiles)  # runs
+    flight, br, stages, runs0 = 0, 0, 0, 0
+    for b in range(32, 257, 32):
+        if b % (8 * row_groups):
+            continue
+        runs0 = runs0 or dw_runs(R, b, target)
+        if 16 * dw_runs(R, b, target) < 15 * runs0:
+            continue
+        st = 4
+        while st > 2 and st * b * row_bytes > SMEM_CTA:
+            st -= 1
+        if (st * b * row_bytes <= SMEM_CTA
+                and (st - 1) * b * row_bytes > flight):
+            flight, br, stages = (st - 1) * b * row_bytes, b, st
+    chunks = _cdiv(R, br)
+    run = min(_cdiv(chunks, target), DW_CHAIN_ROWS * row_groups // br)
+    runs = _cdiv(chunks, run)
+    return DwPlan(kc, nc, tiles, tiles_n, br, stages, run, runs, runs * tiles,
+                  THREADS, stages * br * row_bytes, warps_k, warps_n)
+
+
+def _compiled(name: str, plan_type, args, argtypes):
+    buf = (ctypes.c_int * len(plan_type._fields))()
+    err = _fn(name, [*argtypes, ctypes.c_void_p])(*args, ctypes.addressof(buf))
     if err:
-        raise RuntimeError(f"mm1x1_fwd_plan: CUDA error {err}")
-    return FwdPlan(*buf)
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return plan_type(*buf)
+
+
+def compiled_plan(dtype, R: int, K: int, N: int, has_res: bool) -> FwdPlan:
+    """The forward's plan as the compiled source reports it for this card;
+    on the machine with the card."""
+    i = ctypes.c_int
+    return _compiled("mm1x1_fwd_plan", FwdPlan,
+                     (DTYPE_CODE[dtype], R, K, N, int(bool(has_res)), 0),
+                     [i, ctypes.c_longlong, i, i, i, i])
+
+
+def compiled_dw_plan(R: int, K: int, N: int) -> DwPlan:
+    """The f32 weight gradient's plan as the compiled source reports it
+    for this card; on the machine with the card."""
+    i = ctypes.c_int
+    return _compiled("mm1x1_dw_plan", DwPlan, (R, K, N, 0),
+                     [ctypes.c_longlong, i, i, i])
 
 
 def mm1x1_fwd(
@@ -192,6 +337,10 @@ def mm1x1_fwd(
     R = x.numel() // K
     if R == 0:
         return out
+    if x.dtype == torch.float32 and fwd_plan(x.dtype, R, K, N,
+                                             residual is not None).grid < 0:
+        raise ValueError(f"mm1x1_fwd: f32 {K}->{N} does not fit the "
+                         "kernel's shared memory")
     operands = (x, w, bias_f, residual, out)
     check_aligned("mm1x1_fwd", *operands)
     px, pw, pb, pr, po = (t.data_ptr() if t is not None else None
