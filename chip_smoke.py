@@ -46,7 +46,11 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 ``channels_last_3d`` operands with ``cudnn.benchmark`` on
                 (restored after); ``--phases sites`` runs only the site
                 timings (the trained model's f32 sites first, the GroupNorm
-                shapes also at batch 2), and with
+                shapes also at batch 2, then the GroupNorm sites of
+                ``train_uc_c`` at 256^2 b12 and of the trained model at
+                32^3 b8, both f32, and a sharded rank's slab, bf16:
+                ``reduction_sites``); ``--phases norm_sites`` only the
+                GroupNorm ones; and with
                 ``--port DIR`` times the kernels of the ``vdm4cdm_torch/``
                 in DIR (an earlier commit, unpacked) for a before/after
                 table on one card;
@@ -222,9 +226,10 @@ PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
           "cli", "blessed", "sharded", "twod",
           "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
-# alone (the kernels phase takes them too), for a before/after table with
-# --port; the trained model's f32 path at PyTorch's default TF32 setting
-EXTRA_PHASES = ("sites", "precision")
+# alone (the kernels phase takes them too), or the GroupNorm sites' alone,
+# for a before/after table with --port; the trained model's f32 path at
+# PyTorch's default TF32 setting
+EXTRA_PHASES = ("sites", "norm_sites", "precision")
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
@@ -236,8 +241,10 @@ PAIR_CASE = (32, 256, 128, 8)
 #   f32 conv: 27*Cin-term f32 sums in another order -> 1e-4
 #   bf16 conv / apply: output rounded to bf16 (2^-8 relative); the two orders
 #   can land one bf16 ulp apart -> 1.6e-2
-#   sums: f32 sums over up to 2M voxels with atomics in run-dependent order,
-#   relative to max |sum| -> 1e-4
+#   sums: f32 sums over up to 2M voxels in another order than the plain
+#   version's (the reductions' partials, folded in a fixed order: the same
+#   bits from run to run, which the checks hold too), relative to max |sum|
+#   -> 1e-4
 #   dw / db: f32 sums over up to 4.2M voxels, split over blocks and joined
 #   by atomics in run-dependent order, relative to max |dw| -> 2e-4 (both
 #   dtypes: bf16 products are exact in f32)
@@ -557,6 +564,25 @@ def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed,
     return line
 
 
+def sums_plan_fields(torch, K, x, kind, repeats):
+    """The launch plan a reduction (``kind`` "sums" for ``gn_sums``, "bwd"
+    or "bwd_dropout" for ``gn_bwd_sums``) took on x, and whether a second
+    call gave the same bits; empty for a port whose reductions have no such
+    plan (an earlier commit, whose atomics sum in a run-dependent order)."""
+    mod = sys.modules[K.gn_sums.__module__]
+    if not hasattr(mod, "sums_plan"):
+        return {}
+    B, S, C = x.shape
+    p = mod.sums_plan(B, S, C, x.element_size(),
+                      torch.cuda.get_device_properties(
+                          x.device).multi_processor_count, kind)
+    return {"plan": {"block_c": p.block_c, "chunks": p.chunks,
+                     "padded": p.padded, "runs": p.runs,
+                     "row_blocks": p.row_blocks,
+                     "programs": math.prod(p.grid)},
+            "repeats_bitwise": repeats}
+
+
 def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
     """``S`` voxels (default size^3)."""
     import torch.nn.functional as F
@@ -572,6 +598,7 @@ def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
     with torch.inference_mode():
         s, sr = K.gn_sums(x), K.gn_sums_plain(x)
         y, yr = K.gn_apply(x, a, bv, "silu"), K.gn_apply_plain(x, a, bv, True)
+        repeats = torch.equal(K.gn_sums(x), s)
         torch.cuda.synchronize()
         elt = x.element_size()
         for name, got, ref, kind in (("gn_sums", s, sr, "sums"),
@@ -583,7 +610,9 @@ def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
             line = {"phase": "kernel", "kernel": name,
                     "shape": [batch, S, C], "dtype": dtype_name,
                     "max_abs_err": abs_err, "rel_err": err, "tol": tol}
-            if err > tol:
+            if kind == "sums":
+                line.update(sums_plan_fields(torch, K, x, "sums", repeats))
+            if err > tol or not line.get("repeats_bitwise", True):
                 emit(line)
                 raise AssertionError(f"{name} disagrees: {line}")
             if timed:
@@ -597,7 +626,10 @@ def check_norm(torch, K, size, C, dtype_name, batch, timed, S=None):
                         library_ms=cuda_time_ms(lambda: torch.var_mean(
                             x, dim=1, correction=0), n),
                         library_call="torch.var_mean(x, dim=1, correction=0)"
-                                     " (the same per-(b, c) statistics)")
+                                     " (the same per-(b, c) statistics)",
+                        device_ms=graph_time_ms(lambda: K.gn_sums(x)),
+                        library_device_ms=graph_time_ms(
+                            lambda: torch.var_mean(x, dim=1, correction=0)))
                 else:
                     nbytes = 2 * batch * S * C * elt + 2 * batch * C * 4
                     flops = 6.0 * batch * S * C
@@ -894,6 +926,8 @@ def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
     with torch.inference_mode():
         sums = K.gn_bwd_sums(x, ct, mean, inv, a, b, act, p, seed)
         sums_r = K.gn_bwd_sums_plain(x, ct, mean, inv, a, b, silu, p, seed)
+        repeats = torch.equal(
+            K.gn_bwd_sums(x, ct, mean, inv, a, b, act, p, seed), sums)
         m1, m2 = group_mean(a * sums_r[:, 0]), group_mean(a * sums_r[:, 1])
         dx = K.gn_bwd_apply(x, ct, mean, inv, a, b, m1, m2, act, p, seed)
         dx_r = K.gn_bwd_apply_plain(x, ct, mean, inv, a, b, m1, m2, silu, p,
@@ -920,7 +954,11 @@ def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
         line = {"phase": "kernel", "kernel": name, "shape": [batch, S, C],
                 "dtype": dtype_name, "act": act, "p": p,
                 "max_abs_err": abs_err, "rel_err": err, "tol": tol}
-        fail_unless(err <= tol, f"{name} disagrees", line)
+        if kind == "sums":
+            line.update(sums_plan_fields(
+                torch, K, x, "bwd_dropout" if p > 0.0 else "bwd", repeats))
+        fail_unless(err <= tol and line.get("repeats_bitwise", True),
+                    f"{name} disagrees", line)
         if timed:
             if kind == "sums":
                 nbytes = 2 * batch * S * C * elt + batch * 6 * C * 4
@@ -929,7 +967,9 @@ def check_norm_bwd(torch, K, size, C, dtype_name, batch, act, p, timed,
                     ms=cuda_time_ms(lambda: K.gn_bwd_sums(
                         x, ct, mean, inv, a, b, act, p, seed), n),
                     plain_ms=cuda_time_ms(lambda: K.gn_bwd_sums_plain(
-                        x, ct, mean, inv, a, b, silu, p, seed), 3, 1))
+                        x, ct, mean, inv, a, b, silu, p, seed), 3, 1),
+                    device_ms=graph_time_ms(lambda: K.gn_bwd_sums(
+                        x, ct, mean, inv, a, b, act, p, seed)))
             else:
                 nbytes = 3 * batch * S * C * elt + batch * 6 * C * 4
                 flops = 18.0 * batch * S * C
@@ -1248,6 +1288,10 @@ def phase_kernels(torch, K):
     check_dropout_bwd(torch, K, TRAIN_BATCH, MAIN_SIZE ** 3, 32)
     check_dropout_bwd(torch, K, TRAIN_BATCH, 32 ** 3, 128)
     check_dropout_bwd(torch, K, TRAIN_BATCH, 16 ** 3, 30)
+    # widths the reductions split into channel chunks (c0 > 0 in the
+    # counters): 48 and 96 in chunks of 16 and 32, 384 in chunks of 128
+    for C in (48, 96, 384):
+        check_dropout_bwd(torch, K, TRAIN_BATCH, 16 ** 3, C)
     for size, C in NORM_CASES:
         for dtype_name in ("bfloat16", "float32"):
             for act, p in (("silu", DROPOUT_P), ("silu", 0.0), (None, 0.0),
@@ -1398,37 +1442,89 @@ def mm1x1_sites(torch, K):
     return heads
 
 
+def norm_site(torch, K, size, C, dtype_name, batch, S=None, model=None):
+    """One GroupNorm site of ``S`` voxels (default size^3), checked and
+    timed: ``gn_sums``, ``gn_apply`` at p = 0 and 0.1, and the backward
+    pair (SiLU) at p = 0.1 and p = 0, so that the dropout mask's share of
+    each is measured. One ``site`` line; returns the lines of ``gn_sums``,
+    ``gn_apply`` and the backward pair at p = 0.1."""
+    S = S or size ** 3
+    keys = ("ms", "library_ms", "bound_ms")
+    sums, apply = check_norm(torch, K, size, C, dtype_name, batch, True, S=S)
+    drop = time_dropout_apply(torch, K, size, C, batch, dtype_name, S=S)
+    bwd = check_norm_bwd(torch, K, size, C, dtype_name, batch, "silu",
+                         DROPOUT_P, True, S=S)
+    bwd0 = check_norm_bwd(torch, K, size, C, dtype_name, batch, "silu", 0.0,
+                          True, S=S)
+    emit({"phase": "site", **({"model": model} if model else {}),
+          "kernel": "norm", "shape": [batch, S, C], "dtype": dtype_name,
+          "p": DROPOUT_P,
+          "gn_sums": {k: sums[k] for k in keys + (
+              "device_ms", "library_device_ms")},
+          "gn_apply": {"ms": drop["ms"], "ms_p0": drop["ms_p0"],
+                       "library_ms": apply["library_ms"],
+                       "bound_ms": drop["bound_ms"]},
+          **{name: {"ms": ln["ms"], "ms_p0": ln0["ms"],
+                    "library_ms": ln["library_ms"],
+                    "bound_ms": ln["bound_ms"],
+                    **({"device_ms": ln["device_ms"],
+                        "device_ms_p0": ln0["device_ms"]}
+                       if "device_ms" in ln else {})}
+             for name, ln, ln0 in (("gn_bwd_sums", bwd[0], bwd0[0]),
+                                   ("gn_bwd_apply", bwd[1], bwd0[1]))}})
+    return sums, apply, bwd
+
+
 def norm_sites(torch, K, batch=SFM_BATCH):
     """Every GroupNorm shape of ``NORM_CASES`` at ``batch``, bf16, checked
-    and timed: ``gn_sums``, ``gn_apply`` at p = 0 and 0.1, and the backward
-    pair (SiLU) at p = 0.1 and p = 0, so that the dropout mask's share of
-    each is measured. One ``site`` line each; returns the 128^3, 32-channel
-    lines (the ``kernels`` line's rows)."""
+    and timed (``norm_site``); returns the 128^3, 32-channel lines (the
+    ``kernels`` line's rows)."""
     heads = {}
-    keys = ("ms", "library_ms", "bound_ms")
     for size, C in NORM_CASES:
-        sums, apply = check_norm(torch, K, size, C, "bfloat16", batch, True)
-        drop = time_dropout_apply(torch, K, size, C, batch)
-        bwd = check_norm_bwd(torch, K, size, C, "bfloat16", batch, "silu",
-                             DROPOUT_P, True)
-        bwd0 = check_norm_bwd(torch, K, size, C, "bfloat16", batch, "silu",
-                              0.0, True)
-        emit({"phase": "site", "kernel": "norm",
-              "shape": [batch, size ** 3, C], "dtype": "bfloat16",
-              "p": DROPOUT_P,
-              "gn_sums": {k: sums[k] for k in keys},
-              "gn_apply": {"ms": drop["ms"], "ms_p0": drop["ms_p0"],
-                           "library_ms": apply["library_ms"],
-                           "bound_ms": drop["bound_ms"]},
-              **{name: {"ms": ln["ms"], "ms_p0": ln0["ms"],
-                        "library_ms": ln["library_ms"],
-                        "bound_ms": ln["bound_ms"]}
-                 for name, ln, ln0 in (("gn_bwd_sums", bwd[0], bwd0[0]),
-                                       ("gn_bwd_apply", bwd[1], bwd0[1]))}})
+        sums, apply, bwd = norm_site(torch, K, size, C, "bfloat16", batch)
         if (size, C) == (MAIN_SIZE, 32):
             heads["gn_sums"], heads["gn_apply"] = sums, apply
             heads["gn_bwd_sums"], heads["gn_bwd_apply"] = bwd
     return heads
+
+
+def cpu_norm_sites(torch, model, size, nd):
+    """The (S, C) of every GroupNorm site (a Pair's halves each) of one
+    forward of ``model``'s network on the CPU at crop ``size``."""
+    net = getattr(model, "score_model", None) or model.unet
+    gen = torch.Generator().manual_seed(0)
+    spatial = (size,) * nd
+    z = torch.randn(1, *spatial, net.shape[0], generator=gen)
+    s = (torch.randn(1, *spatial, net.s_conditioning_channels, generator=gen)
+         if net.s_conditioning_channels else None)
+    vs = [torch.randn(1, d, generator=gen) for d in net.v_conditioning_dims]
+    sites = set()
+    with recorded_sites(sites), torch.no_grad():
+        net(z, torch.tensor([0.5]), s_conditioning=s, v_conditionings=vs)
+    return sorted(site[1:] for site in sites if site[0] == "norm")
+
+
+def reduction_sites(torch, vt, K):
+    """The GroupNorm sites the reductions' redesign is held at, beyond the
+    3D ``NORM_CASES``: every norm site of ``train_uc_c`` (f32, b12, 256^2)
+    and of the trained model (f32, b8, 32^3), read off a forward on the CPU
+    at 32^2 and 8^3 and scaled, and a sharded rank's slab (bf16, b2, 64
+    planes of 128^2, 32 channels: the CP rows), each through ``norm_site``.
+    """
+    model, _ = build_2d(vt, TWOD_VDM, 32, "cpu", 73)
+    for S, C in cpu_norm_sites(torch, model, 32, 2):
+        S *= (TWOD_SIZE // 32) ** 2
+        norm_site(torch, K, int(round(math.sqrt(S))), C, "float32",
+                  TWOD_BATCH, S=S, model=TWOD_VDM)
+    model = vt.build_model(vt.preset(BLESSED, **{"data.cropsize": 8}),
+                           device="cpu")
+    for S, C in cpu_norm_sites(torch, model, 8, 3):
+        S *= (32 // 8) ** 3
+        norm_site(torch, K, int(round(S ** (1 / 3))), C, "float32",
+                  BLESSED_TRAIN_BATCH, S=S, model=BLESSED)
+    del model
+    norm_site(torch, K, MAIN_SIZE, 32, "bfloat16", TRAIN_BATCH,
+              S=MAIN_SIZE ** 3 // SHARDED_RANKS, model="sharded rank slab")
 
 
 def check_sfm_shapes(torch, K):
@@ -2660,27 +2756,12 @@ def twod_sites(torch, vt, K):
     dt, B = "float32", TWOD_BATCH
     norm = sorted(s[1:] for s in sites if s[0] == "norm")
     mm = sorted(s[1:] for s in sites if s[0] == "mm1x1")
-    heads, keys = {}, ("ms", "library_ms", "bound_ms")
+    heads = {}
     for S, C in norm:
         size = int(round(math.sqrt(S)))
-        sums, apply = check_norm(torch, K, size, C, dt, B, True, S=S)
         check_dropout_apply(torch, K, size, C, dt, B, S=S)
-        drop = time_dropout_apply(torch, K, size, C, B, dt, S=S)
-        bwd = check_norm_bwd(torch, K, size, C, dt, B, "silu", DROPOUT_P,
-                             True, S=S)
-        bwd0 = check_norm_bwd(torch, K, size, C, dt, B, "silu", 0.0, True,
-                              S=S)
-        emit({"phase": "site", "model": TWOD_VDM, "kernel": "norm",
-              "shape": [B, S, C], "dtype": dt, "p": DROPOUT_P,
-              "gn_sums": {k: sums[k] for k in keys},
-              "gn_apply": {"ms": drop["ms"], "ms_p0": drop["ms_p0"],
-                           "library_ms": apply["library_ms"],
-                           "bound_ms": drop["bound_ms"]},
-              **{name: {"ms": ln["ms"], "ms_p0": ln0["ms"],
-                        "library_ms": ln["library_ms"],
-                        "bound_ms": ln["bound_ms"]}
-                 for name, ln, ln0 in (("gn_bwd_sums", bwd[0], bwd0[0]),
-                                       ("gn_bwd_apply", bwd[1], bwd0[1]))}})
+        sums, apply, bwd = norm_site(torch, K, size, C, dt, B, S=S,
+                                     model=TWOD_VDM)
         for name, ln in (("gn_sums", sums), ("gn_apply", apply),
                          ("gn_bwd_sums", bwd[0]), ("gn_bwd_apply", bwd[1])):
             if name not in heads or ln["bound_ms"] > heads[name]["bound_ms"]:
@@ -3586,7 +3667,13 @@ def main() -> int:
         mm1x1_f32_sites(torch, K)
         norm_sites(torch, K)
         norm_sites(torch, K, TRAIN_BATCH)
+        reduction_sites(torch, vt, K)
         lap("sites")
+    if "norm_sites" in phases:
+        norm_sites(torch, K)
+        norm_sites(torch, K, TRAIN_BATCH)
+        reduction_sites(torch, vt, K)
+        lap("norm_sites")
     if "kernels" in phases:
         heads = phase_kernels(torch, K)
         lap("kernels")

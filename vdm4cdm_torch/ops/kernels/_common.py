@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -48,9 +50,20 @@ def check_aligned(name: str, *tensors) -> None:
 def on_cuda(name: str, x: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
     plain version runs); any other device raises."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{name}: no kernel or plain version for device "
                      f"{x.device}")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, read once."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

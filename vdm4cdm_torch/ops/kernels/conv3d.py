@@ -74,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (DTYPE_CODE, check_aligned, check_forward_only,
-                      check_operand, on_cuda)
+                      check_operand, on_cuda, sm_count)
 
 
 def supports(cin: int, cout: int) -> bool:
@@ -327,11 +327,6 @@ def _check_weights(x, w, cin):
     return cout
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch_fwd(name, x, w, bias, residual, circular, with_sums, d_out,
                 zmode):
     """Launch ``csrc/conv3d_fwd.cu`` in ``zmode`` on x (B, Din, H, W, Cin)
@@ -351,8 +346,7 @@ def _launch_fwd(name, x, w, bias, residual, circular, with_sums, d_out,
             if with_sums else None)
     scratch, sms, n_kernels = None, 0, 1
     if x.dtype == torch.float32:
-        sms = _sm_count(dev.index if dev.index is not None
-                        else torch.cuda.current_device())
+        sms = sm_count(dev)
         plan = fwd_plan(x.dtype, B, d_out, H, W, cin, cout, sms)
         scratch = torch.empty(
             fwd_scratch_floats(plan, B, d_out, H, W, cin, cout),

@@ -118,7 +118,9 @@ def device_keep():
     seed_hi, thresh, BLOCK_S, BLOCK_C, GROUPED)``: the bool keep block of a
     [BLOCK_S, BLOCK_C] block of elements. ``offs`` holds their int64 flat
     indices, ``row_base`` (BLOCK_S,) the int64 flat index of each row's
-    channel 0; the seed words and the threshold are scalar kernel arguments.
+    first channel in the block (channel 0, or the first channel of a
+    channel chunk, a multiple of 4 where ``GROUPED``); the seed words and
+    the threshold are scalar kernel arguments.
     With ``GROUPED`` (C a multiple of 4, so each row's base is too) Philox
     runs once per four channels on a [BLOCK_S, BLOCK_C // 4] block of
     counters, its 32-bit words carried from the row's base without int64
