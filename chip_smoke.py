@@ -114,7 +114,26 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 ``cli.calc_ss``; any threshold failed fails the run; then a
                 warm-up and 3 timed f32 train steps of the same model from
                 its preset (batch 8, 32^3, the trained weights);
- 12. sharded  - the spatially sharded (``sp``) path: the parent spawns two
+ 12. chain    - the trained model's chain from scratch
+                (``vdm4cdm_torch.cli.blessed_chain`` in this process: stages
+                train, bless, generate, calc_ss) at the preset's full width
+                (``VDM_GRF_c_c_32``: chs 16..64, 32^3, b8, f32, dropout
+                0.1): 300 steps through ``cli.train`` with a checkpoint
+                every 100 and every step's loss logged, ``cli.bless`` of
+                step 300, a CV_12_12 campaign at 20 sampler steps from the
+                chain's own registry file, ``cli.calc_ss``; then 2 fields of
+                box 0 (20 steps, one seed) from the blessed copy and from
+                the run directory. Fails unless every kernel of the train
+                step and the sampler launched, the blessed tensors equal the
+                run's bit for bit, the two fields agree within 1e-5 of max
+                |field| (two draws from one copy differ on the card: the
+                conv forward adds its GroupNorm sums with atomics; the
+                line gives that repeat spread), weights and losses are
+                finite, the mean loss of the last 50 steps is below that
+                of the first 50, and the summary is whole. Its launches are
+                the ``kernels`` line's ``launches`` of the eight unsharded
+                kernels (this slice's path), also as ``launches_chain``;
+ 13. sharded  - the spatially sharded (``sp``) path: the parent spawns two
                 ranks on cuda:0, joined over gloo (NCCL refuses two ranks
                 on one device; gloo stages the halo planes through pinned
                 host memory), each seeing exactly the shapes of a rank of a
@@ -136,7 +155,7 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 parent, which prints them. These times are those of two
                 processes sharing one card through host memory: no
                 multi-card figure;
- 13. twod     - the 2D model family at the full width of its presets (256^2,
+ 14. twod     - the 2D model family at the full width of its presets (256^2,
                 batch 12, f32, chs 48..384, GRF data: circular), whose convs
                 are all cuDNN's and whose norms and skip projections are the
                 hand kernels: the library conv's precision with the process
@@ -156,18 +175,17 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 5 (launches per step equal to a bare step's of the preset),
                 and ``cli.generate`` CV_12_12 from its checkpoints (12
                 files of (12, 1, 32, 32));
- 14. profile  - device time by kernel and the device's idle share over UNet
+ 15. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM), and
                 over the blessed model's forward at (12, 32^3) f32 with its
                 3x3x3 convs' GFLOP, rate and share of the 3xTF32 bound
                 (``blessed_conv_rate``), and over its f32 train step
                 (``blessed_train_dw``: dw's device ms a step);
- 15. the ``kernels`` line (``launches``: of the four forward kernels, the
-     ``blessed`` phase's, this slice's path, also as ``launches_blessed``,
-     and the CUDA kernels the conv forward's calls launched there as
-     ``cuda_launches_blessed`` (an f32 call launches two or three); of the
-     training kernels, which that path does not run, the whole
-     ``cli`` phase's, also as ``launches_cli``; ``ms``,
+ 16. the ``kernels`` line (``launches``: of the eight unsharded kernels,
+     the ``chain`` phase's, this slice's path; the ``blessed`` phase's as
+     ``launches_blessed`` and the CUDA kernels the conv forward's calls
+     launched there as ``cuda_launches_blessed`` (an f32 call launches two
+     or three); the whole ``cli`` phase's as ``launches_cli``; ``ms``,
      ``bound_ms`` and ``max_abs_err`` at the SFM's 128^3 batch-4 shape, named
      in ``shape`` and ``padding``; the earlier paths' launches as
      ``launches_sfm_train``, ``launches_vdm_train``, ``launches_sampler`` and
@@ -177,6 +195,14 @@ while developing and then prints no ``kernels`` or ``ok`` line):
      ``launches_twod`` and, for the norm and 1x1 kernels, their largest 2D
      site's times as ``twod_site``), the raw nvidia-smi line, and last
      {"ok": true, "device": {...}}.
+
+``--phases trained`` (run only when asked) drives the whole chain of the
+blessed model (20000 steps, bless, the 250-step CV_12_12 campaign, calc_ss,
+the acceptance gate) in ``runs/blessed_chain``, resuming from the latest
+checkpoint there, and fails unless the gate passes; an hour of steps does
+not fit one chip call, so the first steps go through ``python -m
+vdm4cdm_torch.cli.blessed_chain --until S --stages train`` and the latest
+checkpoint is carried over (its log: ``chiprun_out/trained.log``).
 
 ``--phases precision`` (run only when asked) holds the trained model's f32
 path with the process at PyTorch's default TF32 setting: eps_hat against
@@ -223,13 +249,13 @@ TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
 SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
-          "cli", "blessed", "sharded", "twod",
+          "cli", "blessed", "chain", "sharded", "twod",
           "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
 # alone (the kernels phase takes them too), or the GroupNorm sites' alone,
 # for a before/after table with --port; the trained model's f32 path at
 # PyTorch's default TF32 setting
-EXTRA_PHASES = ("sites", "norm_sites", "precision")
+EXTRA_PHASES = ("sites", "norm_sites", "precision", "trained")
 # (size, channels) of the GroupNorm checks; the dropout checks; the skip join
 # (size, Ca, Cb, groups) whose group of 48 channels straddles the boundary
 NORM_CASES = ((128, 32), (128, 64), (64, 64), (64, 128), (32, 128),
@@ -2270,11 +2296,6 @@ def phase_cli(torch, vt, K, kernels, bare):
 BLESSED = "VDM_GRF_c_c_32"
 BLESSED_CAMPAIGN, BLESSED_STEPS, BLESSED_REPS = "CV_12_12", 100, 12
 BLESSED_TRAIN_BATCH = 8  # the preset's batch: the train step that made it
-GATE_BOXES, GATE_REPS = 2, 4
-GATE_JAX_RECORDED = {"pk_ratio": "[0.79, 1.29]", "overlap": "0.38",
-                     "low_k_r": "min 0.967", "spread_over_std": "not recorded",
-                     "ddnm_consistency": "not recorded", "ddnm_hole_r": "0.93"}
-DDNM_GATE_STEPS, DDNM_GATE_L = 50, 3
 
 
 def time_stats(torch, calc_ss, field):
@@ -2311,8 +2332,7 @@ def phase_blessed(torch, vt, K, kernels):
 
     from vdm4cdm_torch.cli import calc_ss, generate
     from vdm4cdm_torch.cli._common import read_registry
-    from vdm4cdm_torch.evals.acceptance import (THRESHOLDS, ddnm_statistics,
-                                                gate_passes, gate_statistics)
+    from vdm4cdm_torch.evals import acceptance
     from vdm4cdm_torch.train.checkpoint import load_params
 
     t_phase = time.perf_counter()
@@ -2398,55 +2418,22 @@ def phase_blessed(torch, vt, K, kernels):
         and min(counts["generate"][k] for k in FORWARD_KERNELS) > 0,
         "the blessed campaign is not 12 finite (12, 1, 32^3) files", line)
 
-    # 3. the gate: boxes 0 and 1 of the campaign's test loader
-    gen_cfg = vt.preset(BLESSED)
-    gen_cfg.data.set_name, gen_cfg.data.batch_size = "CV", 1
-    boxes = []
-    for i, b in enumerate(vt.build_datamodule(gen_cfg, stage="test")
-                          .test_dataloader()):
-        if i >= GATE_BOXES:
-            break
-        boxes.append(b)
-    gt = np.concatenate([np.moveaxis(b["x"], -1, 1) for b in boxes])
-    samples = np.concatenate([np.load(camp / f"gen_{i}.npy")[:GATE_REPS]
-                              for i in range(GATE_BOXES)])
-    stats = gate_statistics(torch.from_numpy(samples).cuda(),
-                            torch.from_numpy(gt.astype(np.float32)).cuda(),
-                            GATE_REPS)
-
-    b0 = boxes[0]
-    x = torch.from_numpy(b0["x"]).cuda()
-    mask = torch.zeros_like(x)
-    mask[:, : x.shape[1] // 2] = 1.0
-    A = lambda zz: zz * mask  # noqa: E731
-    y = A(x)
+    # 3. the gate (evals/acceptance.py::run_gate): the first reps of
+    # boxes 0 and 1 of the campaign, DDNM on box 0
+    boxes, reps = acceptance.GATE_BOXES, acceptance.GATE_REPS
+    samples = np.concatenate([np.load(camp / f"gen_{i}.npy")[:reps]
+                              for i in range(boxes)])
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    x_hat = vt.ddnm_sample(
-        vdm, y, A, A, n_sampling_steps=DDNM_GATE_STEPS, l=DDNM_GATE_L,
-        s_conditioning=torch.from_numpy(b0["conditioning"]).cuda(),
-        v_conditionings=[torch.from_numpy(b0["conditioning_values"][0])
-                         .cuda()],
-        generator=torch.Generator(device="cuda").manual_seed(123))
-    torch.cuda.synchronize()
-    ddnm_s = time.perf_counter() - t0
+    result = acceptance.run_gate(vdm, cfg,
+                                 samples=torch.from_numpy(samples).cuda())
     counts["ddnm"] = K.launch_counts()
     cuda_counts["ddnm"] = K.cuda_launch_counts()
-    stats.update(ddnm_statistics(x_hat, x, mask))
-    ok = gate_passes(stats)
-    stats["pk_ratio"] = [float(stats["pk_ratio"].min()),
-                         float(stats["pk_ratio"].max())]
-    stats["low_k_r"] = [float(r) for r in stats["low_k_r"]]
-    line = {"phase": "blessed", "what": "gate", "boxes": GATE_BOXES,
-            "reps": GATE_REPS,
-            "gate": {k: {"measured": stats[k], "threshold": THRESHOLDS[k],
-                         "jax_recorded": GATE_JAX_RECORDED[k], "pass": ok[k]}
-                     for k in THRESHOLDS},
-            "ddnm_steps": DDNM_GATE_STEPS, "ddnm_l": DDNM_GATE_L,
-            "ddnm_s": ddnm_s, "launches_ddnm": counts["ddnm"]}
+    line = {"phase": "blessed", "what": "gate", "boxes": boxes,
+            "reps": reps, "gate": result.table(),
+            "ddnm_steps": acceptance.DDNM_STEPS, "ddnm_l": acceptance.DDNM_L,
+            "ddnm_s": result.ddnm_s, "launches_ddnm": counts["ddnm"]}
     emit(line)
-    fail_unless(set(ok) == set(THRESHOLDS) and all(ok.values()),
-                "the blessed model fails the gate", line)
+    fail_unless(not result.failed, "the blessed model fails the gate", line)
 
     # 4. the summary statistics of the campaign
     K.reset_launch_counts()
@@ -2513,6 +2500,185 @@ def phase_blessed(torch, vt, K, kernels):
     reps = BLESSED_REPS
     return (vdm, s[:1].expand(reps, -1, -1, -1, -1).cuda(),
             v[:1].expand(reps, -1).cuda(), trainer)
+
+
+# ---------------------------------------------------- the trained chain
+
+# the chain of ``vdm4cdm_torch.cli.blessed_chain`` from scratch at the
+# preset's full width (VDM_GRF_c_c_32: chs 16..64, 32^3, b8, f32, dropout
+# 0.1): CHAIN_STEPS train steps with a checkpoint every CHAIN_CKPT_EVERY and
+# every step's loss logged, bless, a CV_12_12 campaign at
+# CHAIN_SAMPLING_STEPS, calc_ss; then CHAIN_REPS fields of box 0 from the
+# blessed copy and from the run directory
+CHAIN_STEPS, CHAIN_CKPT_EVERY, CHAIN_SAMPLING_STEPS, CHAIN_REPS = (
+    300, 100, 20, 2)
+CHAIN_WINDOW = 50  # the mean logged loss of the last steps must be lower
+# the blessed copy's fields against the run directory's, relative to max
+# |field|: on the card two draws from one copy with one seed are not the same
+# bits (``conv3d_fwd.cu`` adds its GroupNorm sums with atomicAdd; ~5e-7 of
+# max |field| after 20 steps, ROADMAP.md section 3), so the fields are held
+# to f32 rounding through the chain, and the copy's tensors bit for bit
+CHAIN_FIELDS_TOL = 1e-5
+# the ``trained`` phase's chain directory: the whole 20000-step run, which
+# resumes from the latest checkpoint there (one call does not hold it all:
+# ``python -m vdm4cdm_torch.cli.blessed_chain --until S --stages train``
+# first, then ``--phases trained``)
+TRAINED_OUT = ROOT / "runs" / "blessed_chain"
+# the chain phase's directory (its checkpoints are 57 MB each: under runs/,
+# which git ignores, and outside chiprun_out)
+CHAIN_OUT = ROOT / "runs" / "chip_smoke_chain"
+
+
+def run_logged(main, argv, log):
+    """``main(argv)`` in this process, its printed lines written through to
+    the file ``log`` as they come (an hour-long run keeps its log if the
+    call is cut); returns (exit code, the chain's JSON lines)."""
+    with open(log, "a", buffering=1) as fh:
+        start = fh.tell()
+        fh.write(f"$ {' '.join(map(str, argv))}\n")
+        with contextlib.redirect_stdout(fh):
+            rc = main(argv)
+    with open(log) as fh:
+        fh.seek(start)
+        lines = fh.read().splitlines()
+    return rc, [json.loads(ln) for ln in lines if ln.startswith('{"chain"')]
+
+
+def phase_chain(torch, vt, K, kernels):
+    """The trained-model chain from scratch on the card (``cli.
+    blessed_chain`` in this process, stages train, bless, generate and
+    calc_ss at CHAIN_STEPS steps): every kernel of the train step and the
+    sampler launched, the blessed copy bit-equal to the run's checkpoint,
+    the blessed copy's fields within CHAIN_FIELDS_TOL of the run's (the
+    card's forward does not repeat bit for bit), finite weights and
+    losses, a falling loss, a whole summary. Its directory is deleted
+    after the checks; the log and ``metrics.csv`` go to chiprun_out."""
+    import pickle
+    import shutil
+
+    from vdm4cdm_torch.cli import blessed_chain
+    from vdm4cdm_torch.train.checkpoint import load_params, read_checkpoint
+
+    root = CHAIN_OUT
+    shutil.rmtree(root, ignore_errors=True)
+    log = OUT_DIR / "chain.log"
+    log.write_text("")
+    overrides = [f"run.max_steps={CHAIN_STEPS}",
+                 f"run.ckpt_every_steps={CHAIN_CKPT_EVERY}",
+                 "run.log_every_steps=1"]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, lines = run_logged(blessed_chain.main, [
+        "--out", str(root), "--stages", "train,bless,generate,calc_ss",
+        "--n-sampling-steps", str(CHAIN_SAMPLING_STEPS), "--set",
+        *overrides], log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    by_stage = {ln["chain"]: ln for ln in lines}
+    chain = blessed_chain.Chain(str(root), overrides, "cuda",
+                                CHAIN_SAMPLING_STEPS)
+    shutil.copy(pathlib.Path(chain.run_dir) / "metrics.csv",
+                OUT_DIR / "chain_metrics.csv")
+
+    # the blessed copy against the run's checkpoint, tensor by tensor
+    run = read_checkpoint(chain.ckpt_dir, CHAIN_STEPS)
+    blessed = read_checkpoint(chain.blessed_dir, CHAIN_STEPS)
+    copy_equal = all(torch.equal(blessed[tree][k], run[tree][k])
+                     for tree in ("params", "ema_params")
+                     for k in run[tree])
+    finite = all(bool(torch.isfinite(t).all()) for tree in
+                 ("params", "ema_params") for t in run[tree].values())
+
+    # fields of box 0, one seed, in this process: a warm-up draw (cuDNN's
+    # benchmark search at these shapes), then from the blessed copy, the
+    # run directory and the blessed copy again (the card's repeat spread)
+    box = next(iter(vt.build_datamodule(chain.cfg, stage="test")
+                    .test_dataloader()))
+    s = torch.from_numpy(np.repeat(box["conditioning"][:1], CHAIN_REPS,
+                                   axis=0)).cuda()
+    v = torch.from_numpy(np.repeat(box["conditioning_values"][0][:1],
+                                   CHAIN_REPS, axis=0)).cuda()
+    model = vt.build_model(chain.cfg, device="cuda").eval()
+
+    def draw(ckpt_dir):
+        load_params(ckpt_dir, model, step=CHAIN_STEPS)
+        return model.draw_samples(
+            torch.Generator(device="cuda").manual_seed(71),
+            batch_size=CHAIN_REPS, n_sampling_steps=CHAIN_SAMPLING_STEPS,
+            s_conditioning=s, v_conditionings=[v])
+
+    draw(chain.blessed_dir)
+    fields = [draw(d) for d in (chain.blessed_dir, chain.ckpt_dir,
+                                chain.blessed_dir)]
+    scale = fields[0].abs().max().item()
+
+    rows = [r for r in read_metrics(pathlib.Path(chain.run_dir)
+                                    / "metrics.csv")
+            if r.get("step_s") not in (None, "")]
+    losses = [float(r["loss"]) for r in rows]
+    with open(root / "summary.pkl", "rb") as fh:
+        stats = pickle.load(fh)["CV_12_12"]["stats"]
+    line = {"phase": "chain", "model": blessed_chain.NAME,
+            "steps": CHAIN_STEPS, "ckpt_every": CHAIN_CKPT_EVERY,
+            "sampling_steps": CHAIN_SAMPLING_STEPS, "seconds": seconds,
+            "seconds_by_stage": {k: ln["seconds"]
+                                 for k, ln in by_stage.items()},
+            "step_s": by_stage["train"]["step_s"],
+            "feed_wait_s": by_stage["train"]["feed_wait_s"],
+            "loss_first": statistics.fmean(losses[:CHAIN_WINDOW]),
+            "loss_last": statistics.fmean(losses[-CHAIN_WINDOW:]),
+            "logged_steps": len(losses),
+            "all_finite": finite and all(map(math.isfinite, losses)),
+            "blessed_equal_run": copy_equal,
+            "fields_equal": bool(torch.equal(fields[0], fields[1])),
+            "fields_repeat_equal": bool(torch.equal(fields[0], fields[2])),
+            "fields_max_abs": scale, "fields_tol": CHAIN_FIELDS_TOL,
+            "fields_max_abs_diff": (fields[0] - fields[1]).abs().max().item(),
+            "fields_repeat_max_abs_diff": (fields[0] - fields[2]).abs().max()
+            .item(),
+            "fields_finite": bool(torch.isfinite(fields[0]).all()),
+            "summary_samples": len(stats),
+            "summary_finite": all(
+                np.isfinite(np.asarray(val, np.float64)).all()
+                for name, st in stats.items() if "_GT_" not in name
+                for val in st.values()),
+            "launches": counts}
+    emit(line)
+    fail_unless(
+        rc == 0 and set(by_stage) == {"train", "bless", "generate",
+                                      "calc_ss"}
+        and line["logged_steps"] == CHAIN_STEPS and line["all_finite"]
+        and line["loss_last"] < line["loss_first"]
+        and copy_equal and line["fields_finite"]
+        and line["fields_max_abs_diff"] <= CHAIN_FIELDS_TOL * scale
+        and line["summary_samples"] == 12 + 144 and line["summary_finite"]
+        and min(counts[k] for k in UNSHARDED_KERNELS) > 0,
+        "the trained-model chain failed", line)
+    shutil.rmtree(root)
+    for name in UNSHARDED_KERNELS:  # this slice's path runs all eight
+        kernels[name]["launches_chain"] = counts[name]
+        kernels[name]["launches"] = counts[name]
+
+
+def phase_trained(torch, K):
+    """The whole chain of the blessed model (20000 steps, bless, the
+    250-step CV_12_12 campaign, calc_ss, the gate) in TRAINED_OUT, resumed
+    from its latest checkpoint; fails unless the gate passes."""
+    from vdm4cdm_torch.cli import blessed_chain
+
+    K.reset_launch_counts()
+    rc, lines = run_logged(blessed_chain.main, ["--out", str(TRAINED_OUT)],
+                           OUT_DIR / "trained.log")
+    for ln in lines:
+        emit({"phase": "trained", **ln})
+    emit({"phase": "trained", "what": "launches",
+          "launches": K.launch_counts()})
+    gate = [ln for ln in lines if ln["chain"] == "gate"]
+    fail_unless(rc == 0 and gate and gate[0]["passed"],
+                "the model trained by the port fails the gate",
+                {"rc": rc, "failed": gate[0]["failed"] if gate else None})
 
 
 # ------------------------------------------------------------- 2D phase
@@ -3705,6 +3871,9 @@ def main() -> int:
     if "blessed" in phases:
         blessed = phase_blessed(torch, vt, K, heads)
         lap("blessed")
+    if "chain" in phases:
+        phase_chain(torch, vt, K, heads)
+        lap("chain")
     if "sharded" in phases:
         phase_sharded(torch, heads)
         lap("sharded")
@@ -3714,6 +3883,9 @@ def main() -> int:
     if "precision" in phases:
         phase_precision(torch, vt, K)
         lap("precision")
+    if "trained" in phases:
+        phase_trained(torch, K)
+        lap("trained")
     # the profiler runs last, so that tracing cannot touch a timed phase
     if "profile" in phases:
         if sampler is not None:
@@ -3774,6 +3946,7 @@ def main() -> int:
          "cuda_launches_blessed": h.get("cuda_launches_blessed"),
          "launches_blessed_train": h.get("launches_blessed_train"),
          "launches_cli": h.get("launches_cli"),
+         "launches_chain": h.get("launches_chain"),
          "launches_sfm_train": h.get("launches_sfm_train"),
          "launches_vdm_train": h.get("launches_vdm_train"),
          "launches_sampler": h.get("launches_sampler"),

@@ -56,3 +56,14 @@ def test_the_parallel_modules_are_scanned():
         assert f"vdm4cdm_torch/parallel/{name}.py" in scanned
     worker = ROOT / "tests" / "_torch_dist_worker.py"
     assert not [m for m in _imports(worker) if m.split(".")[0] in FORBIDDEN]
+
+
+def test_the_chain_modules_are_scanned():
+    """The trained-model chain, its bless tool and the profiling helpers
+    stand alone too."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for path in ("vdm4cdm_torch/utils/profiling.py",
+                 "vdm4cdm_torch/cli/bless.py",
+                 "vdm4cdm_torch/cli/blessed_chain.py",
+                 "vdm4cdm_torch/evals/acceptance.py"):
+        assert path in scanned

@@ -10,10 +10,13 @@ Runs on the CUDA card unless ``--device`` names another device; without a
 card and without ``--device cpu`` it raises. The run's directory is
 ``<run.out_dir>/<run.experiment_name>/`` (``metrics.csv`` and
 ``checkpoints/<step>/``); running the same command again resumes from its
-latest checkpoint. ``--config`` reads YAML (PyYAML); ``--preset`` needs
-nothing beyond torch and numpy. Each validation samples from the model and
-hands the validation figure to the loggers; without matplotlib the CLI says
-so once and trains without figures.
+latest checkpoint. ``--until S`` stops the run at step S (a checkpoint
+is written there) without changing its length: the same command without
+it, or with a later S, carries the run on. ``--config`` reads YAML
+(PyYAML); ``--preset`` needs nothing beyond torch and numpy. Each
+validation samples from the model and hands the validation figure to the
+loggers; without matplotlib the CLI says so once and trains without
+figures.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ def main(argv=None):
     ap.add_argument("--set", dest="overrides", nargs="*", metavar="SEC.KEY=VAL",
                     help="config overrides, e.g. data.cropsize=128 "
                          "run.max_steps=1000")
+    ap.add_argument("--until", type=int, default=None, metavar="STEP",
+                    help="stop at this step (default: run.max_steps); the "
+                         "run resumes from there when started again")
     add_device_arg(ap)
     args = ap.parse_args(argv)
 
@@ -95,7 +101,9 @@ def main(argv=None):
     print(f"[train] experiment={cfg.run.experiment_name} family={cfg.model.family} "
           f"ndim={cfg.model.ndim} crop={cfg.data.cropsize} chs={list(cfg.model.chs)} "
           f"device={device}", flush=True)
-    state = trainer.fit(dm)
+    until = (cfg.run.max_steps if args.until is None
+             else min(args.until, cfg.run.max_steps))
+    state = trainer.fit(dm, max_steps=until)
     print(f"[train] done at step {state.step}; params={count_params(model):,}")
     return 0
 

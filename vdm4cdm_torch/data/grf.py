@@ -70,9 +70,12 @@ class GRFDataModule:
         )
         return cond, x.astype(np.float32), params
 
-    def batches(self, n_batches: Optional[int] = None) -> Iterator[dict]:
-        """Yields channels-last numpy batches."""
+    def batches(self, n_batches: Optional[int] = None,
+                skip: int = 0) -> Iterator[dict]:
+        """Yields channels-last numpy batches, from the ``skip``-th of the
+        stream on."""
         rng = np.random.default_rng(self.seed)
+        self._skip(rng, skip)
         i = 0
         while n_batches is None or i < n_batches:
             conds, xs, ps = [], [], []
@@ -100,13 +103,20 @@ class GRFDataModule:
                 }
             i += 1
 
+    def _skip(self, rng: np.random.Generator, n_batches: int) -> None:
+        """Advance ``rng`` past ``n_batches`` batches: the draws of
+        ``_sample`` without the FFTs (a resumed run's first batch is then
+        the uninterrupted run's, about 4x sooner)."""
+        shape = (self.size,) * self.ndim
+        for _ in range(n_batches * self.batch_size):
+            rng.standard_normal(shape)
+            rng.standard_normal(shape)
+            rng.uniform(0.0, 1.0, size=(self.n_conditioning_values,))
+
     # Trainer-facing API (mirrors CAMELSDataModule)
     def train_batches(self, n_steps: int, start_step: int = 0) -> Iterator[dict]:
-        it = self.batches(n_batches=None)
-        for _ in range(start_step):
-            next(it)
-        for _ in range(start_step, n_steps):
-            yield next(it)
+        yield from self.batches(n_batches=max(0, n_steps - start_step),
+                                skip=start_step)
 
     def val_dataloader(self) -> Iterator[dict]:
         val = dataclasses.replace(self, seed=self.seed + 777_777)
