@@ -12,7 +12,11 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 sources at once;
   3. kernels  - the launch plans the conv and 1x1 sources report, against
                 ``ops/kernels/conv3d.py``'s and ``lanemm.py``'s mirrors
-                (``plans`` line); then each hand kernel against its plain
+                (``plans`` line, with the conv forward's sums fold); the
+                conv forward twice on the same inputs at every z mode and
+                dtype and on the f32 K split, outputs and sums equal bit for
+                bit (``conv3d_k3s1_fwd (repeats)``, and ``repeats_bitwise``
+                on every conv line); then each hand kernel against its plain
                 PyTorch version on the card at the model's shapes (B=2,
                 circular and zeros, f32 and bf16, TF32 off for the f32
                 references), with kernel, plain, library and bound times:
@@ -122,13 +126,12 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 every 100 and every step's loss logged, ``cli.bless`` of
                 step 300, a CV_12_12 campaign at 20 sampler steps from the
                 chain's own registry file, ``cli.calc_ss``; then 2 fields of
-                box 0 (20 steps, one seed) from the blessed copy and from
-                the run directory. Fails unless every kernel of the train
-                step and the sampler launched, the blessed tensors equal the
-                run's bit for bit, the two fields agree within 1e-5 of max
-                |field| (two draws from one copy differ on the card: the
-                conv forward adds its GroupNorm sums with atomics; the
-                line gives that repeat spread), weights and losses are
+                box 0 (20 steps, one seed) from the blessed copy, from the
+                run directory and from the copy again. Fails unless every
+                kernel of the train step and the sampler launched, the
+                blessed tensors equal the run's bit for bit, the three
+                draws are the same bits (the repeat spread
+                ``fields_repeat_max_abs_diff`` is 0), weights and losses are
                 finite, the mean loss of the last 50 steps is below that
                 of the first 50, and the summary is whole. Its launches are
                 the ``kernels`` line's ``launches`` of the eight unsharded
@@ -155,7 +158,22 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 parent, which prints them. These times are those of two
                 processes sharing one card through host memory: no
                 multi-card figure;
- 14. twod     - the 2D model family at the full width of its presets (256^2,
+ 14. sharded_cli - the sharded CLI at the flagship's full width: two ranks
+                on cuda:0 over gloo (as ``sharded``) run ``cli.train
+                --preset trainVDM3D128_c_c --set parallel.n_sp=2`` (128^3,
+                b2, chs 32..256, bf16, GRF, remat off) for 3 steps with a
+                checkpoint at 2, resumed to 4, then ``cli.generate`` of one
+                CV_12_12 box (12 fields, 2 a sampler call, 5 steps) and one
+                timed call of the sharded sampler. Fails unless the CLI
+                exits 0 on both ranks, the losses and fields are finite, the
+                ranks' parameter digests agree at every checkpoint (the
+                trainer compares them), rank 0 wrote the checkpoints,
+                ``metrics.csv`` and the file, and every z-halo and CP kernel
+                launched. One line a rank and one for the phase: the
+                per-rank s/step (median of steps 2-4), peak GiB a rank, the
+                sharded sampler's s/field at 250 steps, the launches (the
+                ``kernels`` line's ``launches_sharded_cli``);
+ 15. twod     - the 2D model family at the full width of its presets (256^2,
                 batch 12, f32, chs 48..384, GRF data: circular), whose convs
                 are all cuDNN's and whose norms and skip projections are the
                 hand kernels: the library conv's precision with the process
@@ -175,13 +193,13 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 5 (launches per step equal to a bare step's of the preset),
                 and ``cli.generate`` CV_12_12 from its checkpoints (12
                 files of (12, 1, 32, 32));
- 15. profile  - device time by kernel and the device's idle share over UNet
+ 16. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM), and
                 over the blessed model's forward at (12, 32^3) f32 with its
                 3x3x3 convs' GFLOP, rate and share of the 3xTF32 bound
                 (``blessed_conv_rate``), and over its f32 train step
                 (``blessed_train_dw``: dw's device ms a step);
- 16. the ``kernels`` line (``launches``: of the eight unsharded kernels,
+ 17. the ``kernels`` line (``launches``: of the eight unsharded kernels,
      the ``chain`` phase's, this slice's path; the ``blessed`` phase's as
      ``launches_blessed`` and the CUDA kernels the conv forward's calls
      launched there as ``cuda_launches_blessed`` (an f32 call launches two
@@ -191,7 +209,8 @@ while developing and then prints no ``kernels`` or ``ok`` line):
      ``launches_sfm_train``, ``launches_vdm_train``, ``launches_sampler`` and
      ``launches_sfm_sampler``; the sharded train steps' launches on rank 0 as
      ``launches_sharded``, which is also the ``launches`` of the z-halo rows
-     and of the norm kernels' CP rows; the ``twod`` phase's launches as
+     and of the norm kernels' CP rows; the ``sharded_cli`` phase's, rank
+     0's, as ``launches_sharded_cli``; the ``twod`` phase's launches as
      ``launches_twod`` and, for the norm and 1x1 kernels, their largest 2D
      site's times as ``twod_site``), the raw nvidia-smi line, and last
      {"ok": true, "device": {...}}.
@@ -249,7 +268,7 @@ TRAIN_BATCH, TRAIN_STEPS, EMA_DECAY = 2, 3, 0.999
 SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
-          "cli", "blessed", "chain", "sharded", "twod",
+          "cli", "blessed", "chain", "sharded", "sharded_cli", "twod",
           "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
 # alone (the kernels phase takes them too), or the GroupNorm sites' alone,
@@ -547,17 +566,23 @@ def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed,
     circ = mode == "circular"
     with torch.inference_mode():
         y, s = K.conv3d_k3s1_fwd(x, w, bias, res, circ, True)
+        y2, s2 = K.conv3d_k3s1_fwd(x, w, bias, res, circ, True)
         yr, sr = K.conv3d_k3s1_plain(x, w, bias, res, circ, True)
         torch.cuda.synchronize()
         abs_err, err = rel_err(y, yr)
         _, s_err = rel_err(s / sr.abs().max(), sr / sr.abs().max())
         tol, s_tol = TOL[("conv", dtype_name)], TOL[("sums", dtype_name)]
+        repeats = bool(torch.equal(y, y2) and torch.equal(s, s2))
         line = {"phase": "kernel", "kernel": "conv3d_k3s1_fwd",
                 "shape": [batch, size, size, size, cin, cout], "mode": mode,
                 "dtype": dtype_name, "max_abs_err": abs_err,
                 "rel_err": err, "tol": tol, "sums_rel_err": s_err,
-                "sums_tol": s_tol}
-        if not (err <= tol and s_err <= s_tol):
+                "sums_tol": s_tol, "repeats_bitwise": repeats}
+        # a port whose sums are folded in a fixed order (``sums_plan``)
+        # repeats bit for bit; an earlier one (``--port``) added them with
+        # atomics
+        if not (err <= tol and s_err <= s_tol
+                and (repeats or not _folds_conv_sums(K))):
             emit(line)
             raise AssertionError(f"conv3d_k3s1_fwd disagrees: {line}")
         if timed:
@@ -588,6 +613,62 @@ def check_conv(torch, K, size, cin, cout, mode, dtype_name, batch, timed,
                     x, w, bias, res, circ, True), lib, n, flops, nbytes))
     emit(line)
     return line
+
+
+def _folds_conv_sums(K) -> bool:
+    """Whether the port's conv forward folds its sums in a fixed order."""
+    return hasattr(sys.modules[K.conv3d_k3s1_fwd.__module__], "sums_plan")
+
+
+def check_fwd_repeats(torch, K):
+    """The conv forward twice on the same inputs at every z mode (SAME,
+    halo, and the full-in-z dx pass) in both dtypes and on the f32 K-split
+    path: outputs and sums equal bit for bit."""
+    from vdm4cdm_torch.ops.kernels import conv3d as C
+
+    t0 = time.perf_counter()
+    cases = []
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(91)
+        x = torch.randn(2, 18, 32, 32, 32, generator=gen,
+                        device="cuda").to(dtype)
+        ct = torch.randn(2, 16, 32, 32, 64, generator=gen,
+                         device="cuda").to(dtype)
+        w = torch.randn(3, 3, 3, 32, 64, generator=gen, device="cuda") / 30
+        b = torch.randn(64, generator=gen, device="cuda")
+        calls = {
+            "zmode 0": lambda: K.conv3d_k3s1_fwd(
+                x[:, 1:17].contiguous(), w, b, None, True, True),
+            "zmode 1": lambda: K.conv3d_k3s1_zhalo_fwd(x, w, b, None, True,
+                                                       True),
+            "zmode 2": lambda: (K.conv3d_k3s1_zhalo_dx(ct, w, True), None),
+        }
+        if dtype_name == "float32":
+            xk = torch.randn(12, 4, 4, 4, 48, generator=gen, device="cuda")
+            wk = torch.randn(3, 3, 3, 48, 64, generator=gen,
+                             device="cuda") / 30
+            calls["K split"] = lambda: K.conv3d_k3s1_fwd(xk, wk, b, None,
+                                                         True, True)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            ks = C.fwd_plan(dtype, 12, 4, 4, 4, 48, 64, sms).ksplit
+            fail_unless(ks > 1, "the K-split case does not split K",
+                        {"ksplit": ks})
+        with torch.inference_mode():
+            for name, call in calls.items():
+                y1, s1 = call()
+                y2, s2 = call()
+                torch.cuda.synchronize()
+                cases.append({"case": name, "dtype": dtype_name,
+                              "out_equal": bool(torch.equal(y1, y2)),
+                              "sums_equal": (s1 is None or
+                                             bool(torch.equal(s1, s2)))})
+    line = {"phase": "kernel", "kernel": "conv3d_k3s1_fwd (repeats)",
+            "cases": cases, "all_equal": all(c["out_equal"] and c["sums_equal"]
+                                             for c in cases),
+            "seconds": time.perf_counter() - t0}
+    fail_unless(line["all_equal"], "the conv forward does not repeat", line)
+    emit(line)
 
 
 def sums_plan_fields(torch, K, x, kind, repeats):
@@ -1284,6 +1365,7 @@ def time_dropout_apply(torch, K, size, C, batch, dtype_name="bfloat16",
 
 def phase_kernels(torch, K):
     check_plans(torch, K)
+    check_fwd_repeats(torch, K)
     for size, cin, cout, combos in conv_cases():
         for mode, dtype_name in combos:
             check_conv(torch, K, size, cin, cout, mode, dtype_name, 2,
@@ -1385,8 +1467,9 @@ def conv_sites(torch, K):
 
 def check_plans(torch, K):
     """The launch plans the compiled conv sources report against
-    ``ops/kernels/conv3d.py``'s (``fwd_plan`` / ``dw_plan``, which the CPU
-    tests hold) at every conv and z-halo site, both dtypes."""
+    ``ops/kernels/conv3d.py``'s (``fwd_plan`` / ``dw_plan`` / ``sums_plan``,
+    which the CPU tests hold) at every conv and z-halo site, both
+    dtypes."""
     from vdm4cdm_torch.ops.kernels import conv3d as C
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1403,7 +1486,8 @@ def check_plans(torch, K):
         for dtype in (torch.bfloat16, torch.float32):
             for ci, co in ((cin, cout), (cout, cin)):
                 want = (C.fwd_plan(dtype, b, d, hw, hw, ci, co, sms=sms),
-                        C.dw_plan(dtype, b, d, hw, hw, ci, co, sms=sms))
+                        C.dw_plan(dtype, b, d, hw, hw, ci, co, sms=sms),
+                        C.sums_plan(dtype, b, d, hw, hw, ci, co, sms=sms))
                 got = C.compiled_plans(dtype, b, d, hw, hw, ci, co)
                 if got != want:
                     bad.append({"site": [b, d, hw, ci, co, str(dtype)],
@@ -2513,12 +2597,6 @@ def phase_blessed(torch, vt, K, kernels):
 CHAIN_STEPS, CHAIN_CKPT_EVERY, CHAIN_SAMPLING_STEPS, CHAIN_REPS = (
     300, 100, 20, 2)
 CHAIN_WINDOW = 50  # the mean logged loss of the last steps must be lower
-# the blessed copy's fields against the run directory's, relative to max
-# |field|: on the card two draws from one copy with one seed are not the same
-# bits (``conv3d_fwd.cu`` adds its GroupNorm sums with atomicAdd; ~5e-7 of
-# max |field| after 20 steps, ROADMAP.md section 3), so the fields are held
-# to f32 rounding through the chain, and the copy's tensors bit for bit
-CHAIN_FIELDS_TOL = 1e-5
 # the ``trained`` phase's chain directory: the whole 20000-step run, which
 # resumes from the latest checkpoint there (one call does not hold it all:
 # ``python -m vdm4cdm_torch.cli.blessed_chain --until S --stages train``
@@ -2549,9 +2627,9 @@ def phase_chain(torch, vt, K, kernels):
     blessed_chain`` in this process, stages train, bless, generate and
     calc_ss at CHAIN_STEPS steps): every kernel of the train step and the
     sampler launched, the blessed copy bit-equal to the run's checkpoint,
-    the blessed copy's fields within CHAIN_FIELDS_TOL of the run's (the
-    card's forward does not repeat bit for bit), finite weights and
-    losses, a falling loss, a whole summary. Its directory is deleted
+    the blessed copy's fields bit-equal to the run's and to a second draw
+    from the copy (the card's forward repeats bit for bit), finite weights
+    and losses, a falling loss, a whole summary. Its directory is deleted
     after the checks; the log and ``metrics.csv`` go to chiprun_out."""
     import pickle
     import shutil
@@ -2634,7 +2712,7 @@ def phase_chain(torch, vt, K, kernels):
             "blessed_equal_run": copy_equal,
             "fields_equal": bool(torch.equal(fields[0], fields[1])),
             "fields_repeat_equal": bool(torch.equal(fields[0], fields[2])),
-            "fields_max_abs": scale, "fields_tol": CHAIN_FIELDS_TOL,
+            "fields_max_abs": scale,
             "fields_max_abs_diff": (fields[0] - fields[1]).abs().max().item(),
             "fields_repeat_max_abs_diff": (fields[0] - fields[2]).abs().max()
             .item(),
@@ -2652,7 +2730,8 @@ def phase_chain(torch, vt, K, kernels):
         and line["logged_steps"] == CHAIN_STEPS and line["all_finite"]
         and line["loss_last"] < line["loss_first"]
         and copy_equal and line["fields_finite"]
-        and line["fields_max_abs_diff"] <= CHAIN_FIELDS_TOL * scale
+        and line["fields_equal"] and line["fields_repeat_equal"]
+        and line["fields_repeat_max_abs_diff"] == 0
         and line["summary_samples"] == 12 + 144 and line["summary_finite"]
         and min(counts[k] for k in UNSHARDED_KERNELS) > 0,
         "the trained-model chain failed", line)
@@ -3269,21 +3348,6 @@ def check_zhalo(torch, K, local, size, cin, cout, mode, dtype_name, batch,
     return lines
 
 
-def params_digest(model, state) -> str:
-    """A hash of the parameters, the EMA and both moments, byte for byte."""
-    import hashlib
-
-    h = hashlib.sha256()
-    tensors = [p for _, p in model.named_parameters()]
-    tensors += [state.ema_params[k] for k, _ in model.named_parameters()]
-    for key in ("mu", "nu"):
-        tensors += [state.opt_state[key][k]
-                    for k, _ in model.named_parameters()]
-    for t in tensors:
-        h.update(t.detach().float().cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 def sharded_checks(torch, vt, K, ctx):
     """The sharded port against the unsharded one on the card, at 32^3 f32:
     eps_hat, the loss and every gradient of one step (dropout 0), two real
@@ -3291,6 +3355,7 @@ def sharded_checks(torch, vt, K, ctx):
     Returns the digest."""
     from vdm4cdm_torch.parallel import (local_slab, make_sharded_sfm_sampler,
                                         mean_over_mesh_)
+    from vdm4cdm_torch.train.checkpoint import params_digest
 
     size = PARITY_SIZE
     t0 = time.perf_counter()
@@ -3365,7 +3430,7 @@ def sharded_checks(torch, vt, K, ctx):
     gen = torch.Generator(device="cuda").manual_seed(21)
     for _ in range(2):
         state, metrics = step(state, local, gen)
-    digest = params_digest(sh_m, state)
+    digest = params_digest(state)
     emit({"phase": "sharded", "what": "two train steps", "size": size,
           "dropout": DROPOUT_P, "loss": metrics["loss"].item(),
           "grad_norm": metrics["grad_norm"].item(), "params_sha256": digest,
@@ -3533,6 +3598,188 @@ def phase_sharded(torch, kernels):
         kernels[name]["launches_sharded"] = ranks[0]["launches"].get(base)
     for name in ZHALO_KERNELS + CP_ROWS:
         kernels[name]["launches"] = kernels[name]["launches_sharded"]
+
+
+# the sharded_cli phase: the flagship through cli.train on two sp ranks
+# sharing cuda:0 over gloo, STEPS steps with a checkpoint every CKPT, resumed
+# to RESUME; then cli.generate of its first CV_12_12 box, REPS fields a
+# sampler call, GEN_STEPS sampler steps; its directory (checkpoints of the
+# flagship: under runs/, which git ignores) is deleted after the checks
+SHARDED_CLI_STEPS, SHARDED_CLI_CKPT, SHARDED_CLI_RESUME = 3, 2, 4
+SHARDED_CLI_REPS, SHARDED_CLI_GEN_STEPS = 2, 5
+SHARDED_CLI_OUT = ROOT / "runs" / "chip_smoke_sharded_cli"
+
+
+def sharded_cli_rank(rank, world):
+    """One rank of the sharded_cli phase (a process of its own on cuda:0):
+    ``cli.train`` to SHARDED_CLI_STEPS, resumed to SHARDED_CLI_RESUME,
+    ``cli.generate`` of one box, then one timed call of the sharded sampler
+    from the last checkpoint. The CLI's output goes to
+    ``chiprun_out/sharded_cli_rank<r>.log``. Returns its lines, launches and
+    peak memory."""
+    global _SINK
+    _SINK = []
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import vdm4cdm_torch as vt
+    from vdm4cdm_torch.cli import generate, train
+    from vdm4cdm_torch.cli._common import apply_overrides, parse_overrides
+    from vdm4cdm_torch.ops import kernels as K
+    from vdm4cdm_torch.parallel import (make_mesh, make_shard_ctx,
+                                        make_sharded_vdm_sampler)
+    from vdm4cdm_torch.train.checkpoint import load_params
+
+    out = SHARDED_CLI_OUT
+    log = OUT_DIR / f"sharded_cli_rank{rank}.log"
+    log.write_text("")
+    overrides = ["data.kind=grf", "model.remat=False", f"parallel.n_sp={world}",
+                 f"run.ckpt_every_steps={SHARDED_CLI_CKPT}",
+                 "run.log_every_steps=1", f"run.out_dir={out}"]
+    common = ["--device", "cuda:0", "--dist-backend", "gloo"]
+    argv = ["--preset", VDM_PRESET, *common, "--set", *overrides]
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rcs = [run_logged(train.main, argv + [f"run.max_steps={n}"], log)[0]
+           for n in (SHARDED_CLI_STEPS, SHARDED_CLI_RESUME)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_counts = K.launch_counts()
+
+    ckpt_dir = out / VDM_PRESET / "checkpoints"
+    gen_dir = out / "samples"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rcs.append(run_logged(generate.main, [
+        VDM_PRESET, str(gen_dir), "CV_12_12", "--ckpt-dir", str(ckpt_dir),
+        "--boxes", "1", "--reps-per-batch", str(SHARDED_CLI_REPS),
+        "--n-sampling-steps", str(SHARDED_CLI_GEN_STEPS), *common, "--set",
+        *overrides], log)[0])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = K.launch_counts()
+
+    # the sharded sampler alone, as cli.generate builds it: one timed call
+    # of SHARDED_CLI_REPS fields (cli.generate ran the same shapes in this
+    # process: no warm-up)
+    cfg = vt.preset(VDM_PRESET)
+    apply_overrides(cfg, parse_overrides(overrides))
+    model = vt.build_model(cfg, device="cuda",
+                           ctx=make_shard_ctx(make_mesh(1, world)))
+    load_params(str(ckpt_dir), model)
+    model.eval()
+    box = next(iter(vt.build_datamodule(cfg, "test").test_dataloader()))
+    s = torch.from_numpy(np.repeat(box["conditioning"][:1], SHARDED_CLI_REPS,
+                                   0)).cuda()
+    v = torch.from_numpy(np.repeat(box["conditioning_values"][0][:1],
+                                   SHARDED_CLI_REPS, 0)).cuda()
+    sample = make_sharded_vdm_sampler(model, SHARDED_CLI_REPS,
+                                      SHARDED_CLI_GEN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field = sample(torch.Generator(device="cuda").manual_seed(1), s, [v])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+
+    with open(log) as fh:
+        agree = [ln.strip() for ln in fh if "ranks' parameters are equal" in ln]
+    line = {"phase": "sharded_cli", "what": "rank", "rcs": rcs,
+            "train_seconds": train_s, "train_peak_gib": train_peak,
+            "generate_seconds": gen_s, "generate_peak_gib": gen_peak,
+            "sampler_call_s": call_s,
+            "sampler_s_per_step": call_s / SHARDED_CLI_GEN_STEPS,
+            "sampler_s_per_field_250": call_s / SHARDED_CLI_REPS
+            * FIELD_STEPS / SHARDED_CLI_GEN_STEPS,
+            "sampler_finite": bool(torch.isfinite(field).all()),
+            "digest_lines": agree,
+            "launches_train": train_counts, "launches": counts}
+    emit(line)
+    return {"lines": _SINK, "counts": counts, "rcs": rcs}
+
+
+def phase_sharded_cli(torch, kernels):
+    """The sharded CLI at the flagship's full width (128^3, b2, chs
+    32..256, bf16, dropout 0.1, GRF, remat off) on two ``sp`` ranks that
+    share cuda:0 over gloo: ``cli.train`` with ``parallel.n_sp=2`` for
+    SHARDED_CLI_STEPS steps (a checkpoint at SHARDED_CLI_CKPT), resumed to
+    SHARDED_CLI_RESUME, then ``cli.generate`` of one CV_12_12 box (12 fields,
+    SHARDED_CLI_REPS a sampler call, SHARDED_CLI_GEN_STEPS steps). Fails
+    unless every rank's CLI exits 0, the losses and fields are finite, the
+    ranks' parameter digests agree at every checkpoint (the trainer compares
+    them and raises otherwise; the resumed run's last one is read here), rank
+    0 wrote the checkpoints, ``metrics.csv`` and the campaign's file, and
+    every z-halo and CP kernel launched. Adds their launches to the
+    ``kernels`` line as ``launches_sharded_cli``."""
+    import shutil
+
+    from vdm4cdm_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    shutil.rmtree(SHARDED_CLI_OUT, ignore_errors=True)
+    store = OUT_DIR / "sharded_cli_store"
+    store.mkdir(exist_ok=True)
+    ranks = spawn_ranks(sharded_cli_rank, SHARDED_RANKS, store_dir=str(store),
+                        timeout=SHARDED_TIMEOUT)
+    for r, out in enumerate(ranks):
+        for line in out["lines"]:
+            emit({**line, "rank": r})
+    run_dir = SHARDED_CLI_OUT / VDM_PRESET
+    rows = read_metrics(run_dir / "metrics.csv")
+    shutil.copy(run_dir / "metrics.csv", OUT_DIR / "sharded_cli_metrics.csv")
+    steps = {int(r["step"]): r for r in rows if r.get("step_s") not in
+             (None, "")}
+    losses = [float(steps[k]["loss"]) for k in sorted(steps)]
+    ckpts = sorted(int(n.name) for n in (run_dir / "checkpoints").iterdir()
+                   if n.name.isdigit())
+    field = np.load(SHARDED_CLI_OUT / "samples" / "gen_0.npy")
+    rank0 = ranks[0]["lines"][-1]
+    agree = rank0["digest_lines"]
+    counts = ranks[0]["counts"]
+    line = {"phase": "sharded_cli", "card": card_line(), "preset": VDM_PRESET,
+            "size": MAIN_SIZE,
+            "global_batch": TRAIN_BATCH, "n_sp": SHARDED_RANKS,
+            "dtype": "bfloat16", "backend": "gloo (two ranks, one card)",
+            "steps": sorted(steps), "losses": losses,
+            "s_per_step_median_2_4": statistics.median(
+                float(steps[k]["step_s"]) for k in (2, 3, 4)),
+            "feed_wait_s": [float(steps[k]["feed_wait_s"]) for k in (2, 3, 4)],
+            "peak_gib_per_rank": [max(o["lines"][-1]["train_peak_gib"],
+                                      o["lines"][-1]["generate_peak_gib"])
+                                  for o in ranks],
+            "sampler_s_per_field_250": [o["lines"][-1]
+                                        ["sampler_s_per_field_250"]
+                                        for o in ranks],
+            "checkpoints": ckpts, "digest_lines": agree,
+            "file": {"shape": list(field.shape), "dtype": str(field.dtype),
+                     "finite": bool(np.isfinite(field).all()),
+                     "std": float(field.std())},
+            "launches": counts, "seconds": time.perf_counter() - t0,
+            "note": "two ranks share one card over gloo; halo planes go "
+                    "through pinned host memory: no multi-card figure"}
+    emit(line)
+    fail_unless(
+        all(o["rcs"] == [0, 0, 0] for o in ranks)
+        and sorted(steps) == [1, 2, 3, 4]
+        and all(map(math.isfinite, losses))
+        and ckpts == [SHARDED_CLI_CKPT, SHARDED_CLI_STEPS, SHARDED_CLI_RESUME]
+        and len(agree) == 3 and f"step {SHARDED_CLI_RESUME}:" in agree[-1]
+        and line["file"]["shape"] == [12, 1] + [MAIN_SIZE] * 3
+        and line["file"]["finite"]
+        and all(o["lines"][-1]["sampler_finite"] for o in ranks)
+        and min(counts[k] for k in ZHALO_KERNELS) > 0
+        and min(counts[k[:-3]] for k in CP_ROWS) > 0,
+        "the sharded CLI failed", line)
+    shutil.rmtree(SHARDED_CLI_OUT)
+    for name in ZHALO_KERNELS + CP_ROWS:
+        kernels.setdefault(name, {})["launches_sharded_cli"] = counts[
+            name[:-3] if name.endswith("_cp") else name]
 
 
 UNSHARDED_KERNELS = ("conv3d_k3s1_fwd", "conv3d_k3s1_dw", "gn_sums",
@@ -3877,6 +4124,9 @@ def main() -> int:
     if "sharded" in phases:
         phase_sharded(torch, heads)
         lap("sharded")
+    if "sharded_cli" in phases:
+        phase_sharded_cli(torch, heads)
+        lap("sharded_cli")
     if "twod" in phases:
         phase_twod(torch, vt, K, heads)
         lap("twod")
@@ -3952,6 +4202,7 @@ def main() -> int:
          "launches_sampler": h.get("launches_sampler"),
          "launches_sfm_sampler": h.get("launches_sfm_sampler"),
          "launches_sharded": h["launches_sharded"],
+         "launches_sharded_cli": h.get("launches_sharded_cli"),
          "launches_twod": h.get("launches_twod"),
          "twod_site": h.get("twod_site"),
          "max_abs_err": h["max_abs_err"], "ms": h["ms"],

@@ -1,5 +1,6 @@
 """Rank functions of the multi-process tests of the port's sharded path
-(``test_torch_port_halo.py``, ``test_torch_port_sharded.py``).
+(``test_torch_port_halo.py``, ``test_torch_port_sharded.py``,
+``test_torch_port_sharded_cli.py``).
 
 Each runs in a fresh process of a gloo job started by
 ``vdm4cdm_torch.parallel.launch.spawn_ranks``: it builds the (data, sp)
@@ -237,4 +238,184 @@ def model(rank, world, n_data, n_sp, vdm_state, attn_state, sfm_state, z,
     out["sfm"] = sample(torch.from_numpy(x0),
                         [torch.from_numpy(v0)]).numpy()
     out["stats"] = ctx.stats.as_dict()
+    return out
+
+
+# ----------------------------------------------------------- the sharded CLI
+
+def _cli_cfg(overrides):
+    """The flagship preset under the CLI's ``--set`` overrides."""
+    import vdm4cdm_torch as vt
+    from vdm4cdm_torch.cli._common import apply_overrides, parse_overrides
+
+    cfg = vt.preset("trainVDM3D128_c_c")
+    apply_overrides(cfg, parse_overrides(overrides))
+    return cfg
+
+
+def _tree(tensors):
+    """numpy copies: a rank's tensors would reach the parent through shared
+    memory that the rank's exit takes away."""
+    return {k: t.detach().numpy().copy() for k, t in tensors.items()}
+
+
+def _run_cli(main, argv):
+    """``main(argv)``'s exit code, or (code, what it wrote to stderr) where
+    it stopped with ``SystemExit`` (argparse's errors)."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            return main(argv)
+    except SystemExit as e:
+        return e.code, err.getvalue()
+
+
+def cli_sp(rank, world, out_dir, overrides, reps, steps, sfm_overrides):
+    """On the (1, world) mesh: ``cli.train`` for 2 steps (a checkpoint at
+    2), the same 2 steps of ``make_train_step`` driven by hand on the slabs
+    of the same GRF stream, ``cli.train`` resumed to 3 and the hand run's
+    third step; then ``cli.generate`` CV_12_12 (``reps`` a sampler call,
+    ``steps`` sampler steps) from the last checkpoint and
+    ``make_sharded_vdm_sampler`` driven by hand with the CLI's
+    ``RngStream`` for its first two boxes; then an SFM of ``sigma`` > 0
+    trained one step and its first box drawn by ``cli.generate
+    --sfm-method sde`` and by ``make_sharded_sfm_sampler`` by hand."""
+    import os
+
+    import vdm4cdm_torch as vt
+    from vdm4cdm_torch.cli import generate, train
+    from vdm4cdm_torch.cli._common import apply_overrides, parse_overrides
+    from vdm4cdm_torch.parallel import (make_sharded_sfm_sampler,
+                                        make_sharded_vdm_sampler)
+    from vdm4cdm_torch.train.checkpoint import (load_params, params_digest,
+                                                read_checkpoint)
+    from vdm4cdm_torch.utils.array import nlast_to_nchw
+    from vdm4cdm_torch.utils.rng import RngStream, seeded_generator
+
+    torch.set_num_threads(1)
+    argv = ["--preset", "trainVDM3D128_c_c", "--device", "cpu", "--set",
+            *overrides, f"run.out_dir={out_dir}"]
+    out = {"train_rc": train.main(argv + ["run.max_steps=2"])}
+    cfg = _cli_cfg(overrides)
+    ckpt_dir = os.path.join(out_dir, cfg.run.experiment_name, "checkpoints")
+
+    # the hand run: the model from the CLI's seed, each step's slab of the
+    # GRF stream, the trainer's step generators
+    ctx = make_shard_ctx(make_mesh(1, world))
+    model = vt.build_model(cfg, device="cpu", ctx=ctx,
+                           generator=torch.Generator().manual_seed(
+                               cfg.run.seed))
+    opt = vt.make_optimizer(cfg.run.learning_rate, cfg.run.grad_clip,
+                            cfg.run.weight_decay, cfg.run.warmup_steps)
+    state = vt.TrainState(0, model, opt.init(model), None)
+    step = vt.make_train_step(model, opt)
+    hand = {}
+    for batch in vt.build_datamodule(cfg, "fit").train_batches(3):
+        state, _ = step(state, {
+            "x": _slab(batch["x"], ctx),
+            "conditioning": _slab(batch["conditioning"], ctx),
+            "conditioning_values": [_slab(v, ctx) for v in
+                                    batch["conditioning_values"]]},
+            seeded_generator("cpu", cfg.run.seed + 1, state.step))
+        hand[state.step] = _tree(dict(model.named_parameters()))
+        if state.step == 2:
+            out["digest_2"] = params_digest(state)
+    out["ckpt_2"] = _tree(read_checkpoint(ckpt_dir, 2)["params"])
+    out["hand_2"], out["hand_3"] = hand[2], hand[3]
+    out["resume_rc"] = train.main(argv + ["run.max_steps=3"])
+    out["ckpt_3"] = _tree(read_checkpoint(ckpt_dir, 3)["params"])
+    out["steps"] = sorted(int(n) for n in os.listdir(ckpt_dir)
+                          if n.isdigit())
+    out["figures"] = sorted(os.listdir(os.path.join(
+        out_dir, cfg.run.experiment_name, "figures"))) if rank == 0 else []
+
+    gen_dir = os.path.join(out_dir, "samples")
+    out["generate_rc"] = generate.main([
+        "trainVDM3D128_c_c", gen_dir, "CV_12_12", "--ckpt-dir", ckpt_dir,
+        "--device", "cpu", "--n-sampling-steps", str(steps),
+        "--reps-per-batch", str(reps), "--set", *overrides])
+    gcfg = _cli_cfg(overrides)
+    gcfg.data.set_name, gcfg.data.batch_size = "CV", 1
+    model = vt.build_model(gcfg, device="cpu", ctx=ctx)
+    load_params(ckpt_dir, model)
+    model.eval()
+    sample = make_sharded_vdm_sampler(model, reps, steps)
+    rngs = RngStream(0, device="cpu")
+    boxes = []
+    for i, box in enumerate(vt.build_datamodule(gcfg, "test")
+                            .test_dataloader()):
+        if i == 2:
+            break
+
+        def tile(a):
+            return torch.from_numpy(np.repeat(a, reps, axis=0))
+
+        z = sample(rngs.next(), tile(box["conditioning"]),
+                   [tile(v) for v in box["conditioning_values"]])
+        boxes.append(nlast_to_nchw(z).float().numpy())
+    out["hand_fields"] = boxes
+    if rank == 0:  # each file's (shape, dtype, finite), the first two's data
+        files = {n: np.load(os.path.join(gen_dir, n))
+                 for n in sorted(os.listdir(gen_dir))}
+        out["files"] = {n: (a.shape, str(a.dtype), bool(np.isfinite(a).all()))
+                        for n, a in files.items()}
+        out["file_fields"] = [files[f"gen_{i}.npy"] for i in range(2)]
+
+    # the SFM campaign: the sharded SDE sampler, one box
+    sfm_dir = os.path.join(out_dir, "sfm")
+    sfm_argv = ["--device", "cpu", "--set", *sfm_overrides]
+    out["sfm_train_rc"] = train.main(
+        ["--preset", "trainSFM3D128_c_c", *sfm_argv,
+         f"run.out_dir={sfm_dir}", "run.max_steps=1"])
+    ckpt_dir = os.path.join(sfm_dir, "trainSFM3D128_c_c", "checkpoints")
+    gen_dir = os.path.join(sfm_dir, "samples")
+    out["sfm_generate_rc"] = generate.main([
+        "trainSFM3D128_c_c", gen_dir, "CV_12_12", "--ckpt-dir", ckpt_dir,
+        "--boxes", "1", "--sfm-method", "sde", "--n-sampling-steps",
+        str(steps), "--reps-per-batch", str(reps), *sfm_argv])
+    scfg = vt.preset("trainSFM3D128_c_c")
+    apply_overrides(scfg, parse_overrides(sfm_overrides))
+    scfg.data.set_name, scfg.data.batch_size = "CV", 1
+    model = vt.build_model(scfg, device="cpu", ctx=ctx)
+    load_params(ckpt_dir, model)
+    model.eval()
+    box = next(iter(vt.build_datamodule(scfg, "test").test_dataloader()))
+
+    def tile(a):
+        return torch.from_numpy(np.repeat(a, reps, axis=0))
+
+    z = make_sharded_sfm_sampler(model, steps, method="sde")(
+        tile(box["x0"]), [tile(v) for v in box["conditioning_values"]],
+        RngStream(0, device="cpu").next())
+    out["sfm_hand"] = nlast_to_nchw(z).float().numpy()
+    if rank == 0:
+        out["sfm_files"] = {n: np.load(os.path.join(gen_dir, n))
+                            for n in sorted(os.listdir(gen_dir))}
+    return out
+
+
+def cli_data(rank, world, out_dir, overrides):
+    """On the (world, 1) mesh: ``cli.train`` for one step (each data rank
+    its row of the batch; the trainer compares the ranks' digests at the
+    checkpoint) and the digest of the checkpoint it wrote, then
+    ``cli.generate`` with reps that do not split over the data ranks."""
+    import os
+
+    from vdm4cdm_torch.cli import generate, train
+    from vdm4cdm_torch.train.checkpoint import read_checkpoint
+
+    torch.set_num_threads(1)
+    out = {"train_rc": train.main([
+        "--preset", "trainVDM3D128_c_c", "--device", "cpu", "--set",
+        *overrides, f"run.out_dir={out_dir}", "run.max_steps=1"])}
+    cfg = _cli_cfg(overrides)
+    ckpt_dir = os.path.join(out_dir, cfg.run.experiment_name, "checkpoints")
+    out["params"] = _tree(read_checkpoint(ckpt_dir, 1)["params"])
+    out["reps_error"] = _run_cli(generate.main, [
+        "trainVDM3D128_c_c", os.path.join(out_dir, "samples"), "CV_12_12",
+        "--ckpt-dir", ckpt_dir, "--device", "cpu", "--reps-per-batch", "3",
+        "--set", *overrides])
     return out

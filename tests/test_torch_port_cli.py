@@ -4,8 +4,8 @@
 ``parse_overrides`` equals the JAX package's. Train, resume and generate
 with ``--device cpu`` write ``metrics.csv``, the checkpoints and the campaign
 files with the JAX CLI's names, shapes and layout ((B, C, *spatial) f32).
-Without ``--device`` and without a card the CLI raises; a sharded config
-raises ``NotImplementedError``. And the slice against JAX: the SFM preset
+Without ``--device`` and without a card the CLI raises; a 2D config under
+``sp`` sharding (not ported yet) raises ``NotImplementedError``. And the slice against JAX: the SFM preset
 ``trainSFM3D128_c_c`` at 16^3, chs (8, 16), f32, ``sfm_sigma`` 0, with the
 same seeded parameters on both sides, saved as a port checkpoint: the port's
 ``cli.generate`` (Heun, 2 steps, CV_12_12) writes what the JAX package's
@@ -122,7 +122,7 @@ def test_the_cli_needs_a_card_or_device_cpu(monkeypatch, tmp_path):
         generate.main([VDM, str(tmp_path / "g"), "CV_12_12", "--ckpt-dir",
                        str(tmp_path), "--set", *SMALL])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(["--preset", VDM, "--device", "cpu", "--set", *SMALL,
+        train.main(["--preset", "smoke_vdm_2d", "--device", "cpu", "--set",
                     "parallel.n_sp=2", f"run.out_dir={tmp_path}"])
 
 

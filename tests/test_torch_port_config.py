@@ -15,6 +15,17 @@ import vdm4cdm_torch as vt
 from vdm4cdm_torch import config as tconfig
 from vdm4cdm_torch import presets as tpresets
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """One thread for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 NAMES = sorted(jpresets.PRESETS) + sorted(jpresets._REGISTRY_ALIASES) + [
     "VDM_Go7_Mcdm_c_c_128", "VDM_Go8_Mcdm_c_c_128", "VDM_Go9_Mcdm_c_c_128"]
 PRESETS_3D = sorted(k for k, c in jpresets.PRESETS.items()

@@ -21,6 +21,17 @@ from vdm4cdm_torch.ops.kernels import (conv3d_k3s1_dw, conv3d_k3s1_dx,
                                        conv3d_k3s1_fwd)
 from vdm4cdm_torch.ops.pair import Pair
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two threads for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = 1e-4
 
 

@@ -318,3 +318,68 @@ def test_f32_forward_split_follows_the_cards_sm_count():
         # and no more splits than that takes
         base = plan.grid_x // plan.ksplit * plan.grid_y
         assert base * (plan.ksplit - 1) < sms
+
+
+def _sums_rows(plan, B, D, H, W):
+    """The workspace row each CTA of a forward plan writes its sums to, by
+    (b, Cout tile): its brick, decoded as conv3d_fwd.cu decodes it; for a K
+    split, the reduce kernel's CTA of 64 voxels."""
+    rows = {}
+    if plan.ksplit > 1:
+        S = D * H * W
+        for b in range(B):
+            rows[b, 0] = [v0 // C.FWD_REDUCE_VOX
+                          for v0 in range(0, S, C.FWD_REDUCE_VOX)]
+        return rows
+    nbh, nbw = _cdiv(H, plan.tile_h), _cdiv(W, plan.tile_w)
+    for b, lo, _, n0, _ in fwd_tiles(plan, B, D, H, W):
+        br = (lo[0] // plan.tile_d * nbh + lo[1] // plan.tile_h) * nbw + \
+            lo[2] // plan.tile_w
+        rows.setdefault((b, n0), []).append(br)
+    return rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_sums_fold_takes_each_row_once_in_index_order(dtype):
+    """The GroupNorm sums of every forward site (SAME and z-halo, the
+    trained model's, the f32 K splits'): each CTA writes one row of the
+    workspace (B, T, 2, Cout) and every (batch, Cout tile) writes each of
+    the T rows once; the fold's runs, taken in the order their totals are
+    added, are the rows 0 .. T - 1 in index order, each once, a segment of
+    at least 64 rows (or one), at most 64 segments; the column groups cover
+    2 Cout; the workspace holds the rows and the segments' partials."""
+    split = 0
+    for label, B, D, H, W, cin, cout, _ in SITES:
+        if label not in ("fwd", "zhalo_fwd"):
+            continue
+        fwd = C.fwd_plan(dtype, B, D, H, W, cin, cout)
+        plan = C.sums_plan(dtype, B, D, H, W, cin, cout)
+        split += fwd.ksplit > 1
+        for key, rows in _sums_rows(fwd, B, D, H, W).items():
+            assert sorted(rows) == list(range(plan.rows)), (label, key)
+        order = [r for _, _, t0, t1 in C.fold_runs(plan)
+                 for r in range(t0, t1)]
+        assert order == list(range(plan.rows))
+        runs = list(C.fold_runs(plan))
+        assert [(s, w) for s, w, _, _ in runs] == [
+            (s, w) for s in range(plan.segments)
+            for w in range(plan.threads // 32)]
+        assert 1 <= plan.segments <= C.FOLD_MAX_SEGS
+        assert plan.segments == 1 or \
+            plan.rows // plan.segments >= C.FOLD_MIN_ROWS
+        assert plan.groups * C.FOLD_COLS >= 2 * cout > \
+            (plan.groups - 1) * C.FOLD_COLS
+        floats, tickets = C.sums_workspace(plan, B, cout)
+        assert floats == B * plan.rows * 2 * cout + \
+            B * plan.groups * plan.segments * C.FOLD_COLS
+        assert tickets == B * plan.groups
+    assert split if dtype == torch.float32 else not split
+
+
+def test_sums_fold_fills_the_card_at_the_large_sites():
+    """At the flagship's 128^3 sites the fold's CTAs make about two waves
+    of the card (64 segments of 128 bricks at (4, 128^3, 32 -> 32))."""
+    plan = C.sums_plan(torch.bfloat16, 4, 128, 128, 128, 32, 32)
+    assert plan == C.SumsPlan(8192, 1, 64, 256)
+    small = C.sums_plan(torch.bfloat16, 4, 128, 128, 128, 32, 32, sms=16)
+    assert small.segments == 8  # two waves of a 16-SM card

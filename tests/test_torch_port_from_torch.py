@@ -33,6 +33,16 @@ from vdm4cdm_torch.interop import from_torch  # noqa: E402
 from vdm4cdm_torch.train.checkpoint import load_params  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """One thread for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _kw(nd, mid_attn, padding="circular", size=8, chs=(8, 8, 8, 8)):
     return dict(shape=(1,) + (size,) * nd, chs=chs,
                 s_conditioning_channels=1, v_conditioning_dims=(6,),

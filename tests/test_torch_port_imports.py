@@ -67,3 +67,16 @@ def test_the_chain_modules_are_scanned():
                  "vdm4cdm_torch/cli/blessed_chain.py",
                  "vdm4cdm_torch/evals/acceptance.py"):
         assert path in scanned
+
+
+def test_the_sharded_cli_modules_are_scanned():
+    """The sharded CLI (its job, mesh and figure hook, the trainer's slab
+    feed and rank-0 checkpoints, the sharded campaign) and the conv
+    forward's sums fold stand alone too."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for path in ("vdm4cdm_torch/cli/_common.py", "vdm4cdm_torch/cli/train.py",
+                 "vdm4cdm_torch/cli/generate.py",
+                 "vdm4cdm_torch/train/loop.py",
+                 "vdm4cdm_torch/train/checkpoint.py",
+                 "vdm4cdm_torch/ops/kernels/conv3d.py", "chip_smoke.py"):
+        assert path in scanned

@@ -29,6 +29,17 @@ from vdm4cdm_torch.ops.kernels import (KERNELS, mm1x1_dw, mm1x1_dw_plain,
 from vdm4cdm_torch.ops.kernels.lanemm import supports
 from vdm4cdm_torch.ops.pair import Pair
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """One thread for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # (B, R, K, N): lane-dense shapes of tests/test_lanemm.py
 LANE_CASES = [(2, 64, 128, 256), (1, 48, 384, 128)]
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}

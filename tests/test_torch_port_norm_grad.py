@@ -24,6 +24,17 @@ from vdm4cdm_torch.ops import norm
 from vdm4cdm_torch.ops.kernels import (gn_bwd_apply, gn_bwd_sums, gn_sums)
 from vdm4cdm_torch.ops.pair import Pair
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """One thread for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = 1e-4
 
 

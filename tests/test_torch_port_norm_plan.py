@@ -32,6 +32,16 @@ SMS = 132  # the H100 SXM
 ELT = {torch.bfloat16: 2, torch.float32: 4}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """One thread for the module's torch work (the replays): beside five
+    other test workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _one_thread(fn):
     """fn() with torch on one thread: the recorded forwards are small, and
     the other test workers hold the other cores."""
@@ -220,17 +230,17 @@ def test_the_2d_sites_no_longer_pad_and_fill_the_card():
 
 def _replay(p, B, S, C, value):
     """The plan in plain torch, f64: ``value(b, rows, cols)`` gives the two
-    summands (B-th batch, a run's rows, a chunk's columns) of each element;
-    each program sums its run, and the (b, chunk)'s partials are folded in
-    run order, ``fold_rows`` at a time."""
+    summands (B-th batch, a run's rows, a chunk's columns: slices) of each
+    element; each program sums its run, and the (b, chunk)'s partials are
+    folded in run order, ``fold_rows`` at a time."""
     out = torch.zeros(B, 2, C, dtype=torch.float64)
     bc = p.block_c
     for b in range(B):
         for chunk in range(p.chunks):
-            cols = torch.arange(chunk * bc, min((chunk + 1) * bc, C))
+            cols = slice(chunk * bc, min((chunk + 1) * bc, C))
             parts = []
             for start, stop in zip(*_run_rows(p, S)):
-                rows = torch.arange(int(start), int(stop))
+                rows = slice(int(start), int(stop))
                 v1, v2 = value(b, rows, cols)
                 parts.append(torch.stack([v1.sum(0), v2.sum(0)]))
             parts = torch.stack(parts)
@@ -281,7 +291,7 @@ def test_a_replay_of_the_plan_equals_the_plain_sums(B, S, C):
             p = FN.sums_plan(B, S, C, ELT[dt], sms)
             assert p == FN.sums_plan(B, S, C, ELT[dt], sms, "sums")
             got = _replay(p, B, S, C, lambda b, r, c: (
-                xd[b][r][:, c], xd[b][r][:, c] ** 2))
+                xd[b, r, c], xd[b, r, c] ** 2))
             torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-9)
 
 
@@ -316,11 +326,13 @@ def test_a_replay_of_the_bwd_plan_equals_the_plain_sums(B, S, C, dropout_p):
         def value(bi, rows, cols, p=p):
             if keep is not None and not p.padded:
                 # the program's mask from its chunk's counters
-                chunk = int(cols[0]) // p.block_c
-                k = _chunk_keep(seed, p, S, C, bi, rows, chunk, dropout_p)
-                assert torch.equal(k, keep[bi][rows][:, cols])
-            d = dy[bi][rows][:, cols]
-            return d, d * xhat[bi][rows][:, cols]
+                chunk = cols.start // p.block_c
+                k = _chunk_keep(seed, p, S, C, bi,
+                                torch.arange(rows.start, rows.stop), chunk,
+                                dropout_p)
+                assert torch.equal(k, keep[bi, rows, cols])
+            d = dy[bi, rows, cols]
+            return d, d * xhat[bi, rows, cols]
 
         got = _replay(p, B, S, C, value)
         torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-9)

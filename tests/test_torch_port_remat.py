@@ -10,6 +10,17 @@ import torch
 
 import vdm4cdm_torch as vt
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """One thread for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 KW = dict(shape=(1, 8, 8, 8), chs=(8, 16, 16), s_conditioning_channels=1,
           v_conditioning_dims=(6,), norm_groups=4, mid_attn=False,
           dropout_prob=0.3, conv_padding_mode="circular", num_res_blocks=1)

@@ -21,6 +21,17 @@ from vdm4cdm_tpu.models import CUNet as JCUNet
 import vdm4cdm_torch as vt
 from vdm4cdm_torch.diffusion import alpha_sigma
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two threads for the module's torch work: beside five other test
+    workers, more only contend for the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 KW = dict(shape=(1, 8, 8, 8), chs=(8, 16, 16, 16), s_conditioning_channels=1,
           v_conditioning_dims=(6,), norm_groups=4, mid_attn=False,
           dropout_prob=0.0, conv_padding_mode="circular")

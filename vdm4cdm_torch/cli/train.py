@@ -5,6 +5,8 @@ Usage:
         --set data.kind=grf run.max_steps=1000
     python -m vdm4cdm_torch.cli.train --config my_experiment.yaml
     python -m vdm4cdm_torch.cli.train --preset smoke_sfm_3d --device cpu
+    torchrun --nproc-per-node 2 -m vdm4cdm_torch.cli.train \
+        --preset trainVDM3D128_c_c --set parallel.n_sp=2
 
 Runs on the CUDA card unless ``--device`` names another device; without a
 card and without ``--device cpu`` it raises. The run's directory is
@@ -17,6 +19,13 @@ it, or with a later S, carries the run on. ``--config`` reads YAML
 validation samples from the model and hands the validation figure to the
 loggers; without matplotlib the CLI says so once and trains without
 figures.
+
+``parallel.n_data`` / ``n_sp`` > 1 trains under the (data, sp) mesh, one
+process a rank (``torchrun``, or ``--coordinator HOST:PORT --num-processes
+N --process-id R`` on each rank; ``cli/_common.py`` says more): the model is
+built on every rank from the same seed with this rank's ``ctx``, each rank
+feeds its slab of the global batch, rank 0 writes the logs and the
+checkpoints, and the validation figure samples through the sharded samplers.
 """
 
 from __future__ import annotations
@@ -27,8 +36,8 @@ import sys
 
 import torch
 
-from .._device import resolve_device
-from ._common import (add_device_arg, apply_overrides,
+from ._common import (add_device_arg, add_dist_args, apply_overrides,
+                      init_distributed, make_mesh_from_config,
                       make_validation_figure_fn, parse_overrides,
                       require_unsharded)
 
@@ -49,13 +58,11 @@ def main(argv=None):
                     help="stop at this step (default: run.max_steps); the "
                          "run resumes from there when started again")
     add_device_arg(ap)
+    add_dist_args(ap)
     args = ap.parse_args(argv)
 
-    from ..config import ExperimentConfig, build_datamodule, build_model
+    from ..config import ExperimentConfig
     from ..presets import preset as get_preset
-    from ..train import TrainConfig, Trainer
-    from ..train.checkpoint import load_params
-    from ..utils.array import count_params
 
     if args.config:
         cfg = ExperimentConfig.load(args.config)
@@ -65,9 +72,28 @@ def main(argv=None):
         ap.error("need --preset or --config")
     apply_overrides(cfg, parse_overrides(args.overrides))
     require_unsharded(cfg)
-    device = resolve_device(args.device)
+    device, joined = init_distributed(args)
+    try:
+        return _train(cfg, args, device)
+    finally:
+        if joined:
+            import torch.distributed as dist
 
-    model = build_model(cfg, device=device,
+            dist.destroy_process_group()
+
+
+def _train(cfg, args, device) -> int:
+    from ..config import build_datamodule, build_model
+    from ..parallel import make_shard_ctx, process_rank
+    from ..train import TrainConfig, Trainer
+    from ..train.checkpoint import load_params
+    from ..utils.array import count_params
+
+    mesh = make_mesh_from_config(cfg)
+    ctx = make_shard_ctx(mesh) if mesh is not None else None
+    rank0 = process_rank()[0] == 0
+    # the same seed on every rank: the ranks start from equal parameters
+    model = build_model(cfg, device=device, ctx=ctx,
                         generator=torch.Generator().manual_seed(cfg.run.seed))
     dm = build_datamodule(cfg, stage="fit")
     tc = TrainConfig(
@@ -88,23 +114,32 @@ def main(argv=None):
     )
     draw_figure = None
     if importlib.util.find_spec("matplotlib") is None:
-        print("[train] validation figures are off: matplotlib is not "
-              "installed", flush=True)
+        if rank0:
+            print("[train] validation figures are off: matplotlib is not "
+                  "installed", flush=True)
     else:
         draw_figure = make_validation_figure_fn(cfg, model, dm)
     trainer = Trainer(model, tc, draw_figure=draw_figure)
 
     if cfg.run.warm_start_ckpt:
-        load_params(cfg.run.warm_start_ckpt, model)
-        print(f"[train] warm-started params from {cfg.run.warm_start_ckpt}")
+        load_params(cfg.run.warm_start_ckpt, model)  # every rank: one file
+        if rank0:
+            print(f"[train] warm-started params from "
+                  f"{cfg.run.warm_start_ckpt}")
 
-    print(f"[train] experiment={cfg.run.experiment_name} family={cfg.model.family} "
-          f"ndim={cfg.model.ndim} crop={cfg.data.cropsize} chs={list(cfg.model.chs)} "
-          f"device={device}", flush=True)
+    if rank0:
+        axes = None if mesh is None else {"data": mesh.n_data,
+                                          "sp": mesh.n_sp}
+        print(f"[train] experiment={cfg.run.experiment_name} "
+              f"family={cfg.model.family} ndim={cfg.model.ndim} "
+              f"crop={cfg.data.cropsize} chs={list(cfg.model.chs)} "
+              f"mesh={axes} device={device}", flush=True)
     until = (cfg.run.max_steps if args.until is None
              else min(args.until, cfg.run.max_steps))
     state = trainer.fit(dm, max_steps=until)
-    print(f"[train] done at step {state.step}; params={count_params(model):,}")
+    if rank0:
+        print(f"[train] done at step {state.step}; "
+              f"params={count_params(model):,}")
     return 0
 
 

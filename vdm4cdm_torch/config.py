@@ -198,9 +198,13 @@ def build_model(cfg: ExperimentConfig, device=None, ctx=None,
 
 def build_datamodule(cfg: ExperimentConfig, stage: str = "fit"):
     """The config's data module: GRF (synthetic) or CAMELS from the
-    registry, for ``stage`` "fit" or "test". A CAMELS module serves this
-    process's block of each batch when ``torch.distributed`` is
-    initialized."""
+    registry, for ``stage`` "fit" or "test". Under ``torch.distributed`` a
+    CAMELS "fit" module serves the rows of each global batch that this
+    process's data index selects (``cfg.parallel``'s mesh: rank = data
+    index * n_sp + sp index), and the trainer's feed takes its ``sp``
+    index's planes of them; a "test" module, and GRF at every stage, serve
+    the whole batch on every rank (the GRF stream is one sequence: each rank
+    draws all of it and the feed keeps its slab)."""
     d, m = cfg.data, cfg.model
     if d.kind == "grf":
         from .data.grf import GRFDataModule
@@ -222,9 +226,10 @@ def build_datamodule(cfg: ExperimentConfig, stage: str = "fit"):
     else:
         channel_names = [d.out_field]
         return_func = None  # default: unconditional x
-    from .parallel.shard import process_rank
+    from .parallel.shard import data_process
 
-    index, count = process_rank()
+    index, count = (data_process(cfg.parallel.n_sp) if stage == "fit"
+                    else (0, 1))
     return get_dataset(
         registry_dir=d.registry_dir,
         dataset_name=d.dataset_name,

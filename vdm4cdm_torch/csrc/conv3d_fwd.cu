@@ -42,7 +42,8 @@
 //   - the epilogue goes through shared memory: bias, the residual (staged
 //     by cp.async beside the first chunk, 16-byte vectors) and the sums in
 //     f32, the output written as 16-byte vectors, the sums reduced per CTA
-//     and added with one atomicAdd per channel and CTA.
+//     (each warp's into a slot of its own, the slots added in warp order)
+//     into the CTA's row of the sums workspace (below).
 // Each input byte crosses L2 about 2.3 times (the halo) per Cout tile,
 // instead of 27 times.
 //
@@ -73,17 +74,31 @@
 //     (8-channel chunk x (kz, kx)) are split over CTAs; a second kernel adds
 //     their partial sums in split order, then bias, residual and the sums:
 //     y is the same bit for bit from run to run.
-// A call launches two kernels (the weight split and the conv), three where
-// K is split; ops/kernels/conv3d.py counts them beside the calls.
+// An f32 call launches two kernels (the weight split and the conv), three
+// where K is split; a call that takes the sums (either dtype) adds their
+// fold; ops/kernels/conv3d.py counts them beside the calls.
 
 // The optional residual (same shape as the output) is added in f32 before the
 // cast and before the sums. It carries the second half of a split pair conv
 // (conv(concat(a, b), W) = conv(a, W_a) + conv(b, W_b)) and the ResBlock's
 // skip connection, so neither needs a pass of its own.
 //
-// The sums are added to the (B, 2, Cout) f32 output with atomicAdd: their
-// order changes from run to run, so two runs agree to f32 rounding of a sum
-// over D*H*W terms, not bitwise.
+// The sums are folded in a fixed order, so they, like y, are the same bits
+// from run to run. Each CTA of the conv (or of the K splits' reduce) writes
+// its (sum y, sum y^2) per channel into row t of a workspace (B, T, 2, Cout)
+// f32, t its spatial tile (its brick, or the reduce kernel's run of R_VOX
+// voxels); inside the CTA each warp's partials go to a slot of its own and
+// the slots are added in warp order. conv3d_k3s1_sums_fold_kernel then adds
+// the T rows (make_fold_plan): CTA (column group, segment, b) takes a
+// contiguous segment of the rows, its warp w a contiguous run of that
+// segment in index order, each lane a float4 of 4 columns; the warps' totals
+// are added in warp order; the last CTA of a (column group, b) to take a
+// ticket adds the segments' partials in segment order, writes the (B, 2,
+// Cout) result and resets its ticket for the next launch. No float atomics:
+// the order of every addition is fixed by the shapes (and the card's SM
+// count). The workspace, the segments' partials and the tickets (0 between
+// launches) come from the wrapper, which keeps them per device and stream
+// (ops/kernels/conv3d.py::sums_plan mirrors the plan and the order).
 //
 // z modes. zmode 0 is the SAME conv above (the input has the output's D
 // planes, z wraps or zero-fills like H and W). The spatially sharded path
@@ -140,6 +155,21 @@ constexpr int WARPS = brick::BD;           // warp w owns brick plane w
 constexpr int THREADS = WARPS * 32;
 constexpr int XS = brick::NH * KC * 2;     // haloed input chunk, bytes
 
+// The CTA's GroupNorm sums into its row of the workspace (B, T, 2, Cout):
+// thread k * BN + c adds the NW warps' slots s_sum[(w * 2 + k) * BN + c] in
+// warp order for channel n0 + c of tile row t.
+template <int NW, int BN>
+__device__ __forceinline__ void store_tile_sums(const float* s_sum, float* __restrict__ ws,
+                                                int tid, int b, int t, int T, int n0, int Cout) {
+  if (tid >= 2 * BN) return;
+  const int k = tid / BN, c = tid % BN;
+  if (n0 + c >= Cout) return;
+  float v = s_sum[k * BN + c];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) v += s_sum[(w * 2 + k) * BN + c];
+  ws[(((long long)b * T + t) * 2 + k) * Cout + n0 + c] = v;
+}
+
 // Shared memory of a CTA with BN output channels: two input chunks, two
 // slices of weights (one kz plane: 9 taps x BN x KC), the row-offset table,
 // the residual's brick; the f32 epilogue tile reuses the chunks and slices.
@@ -152,7 +182,7 @@ template <int BN> struct Fwd {
   static constexpr int SMEM = RES + brick::M * BN * 2;
   static constexpr int CLD = BN + 4;              // f32 epilogue row stride
   static constexpr int CTAS_PER_SM = BN == 32 ? 3 : 2;
-  static_assert(brick::M * CLD * 4 + 2 * BN * 4 <= OFF, "epilogue fits in the buffers");
+  static_assert(brick::M * CLD * 4 + WARPS * 2 * BN * 4 <= OFF, "epilogue fits in the buffers");
   static_assert(CTAS_PER_SM * (SMEM + 1024) <= 233472, "CTAs an SM fit its shared memory");
 };
 static_assert(brick::BH * brick::BW == 64, "a warp's plane is 4 m16 tiles");
@@ -161,7 +191,7 @@ template <int BN>
 __global__ void __launch_bounds__(THREADS, Fwd<BN>::CTAS_PER_SM)
 conv3d_k3s1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                         const float* __restrict__ bias, const bf16* __restrict__ res,
-                        bf16* __restrict__ out, float* __restrict__ sums, int D, int H, int W,
+                        bf16* __restrict__ out, float* __restrict__ tsums, int D, int H, int W,
                         int Cin, int Cout, int circular, int zmode, int nbh, int nbw,
                         int ntiles) {
   using namespace brick;
@@ -330,7 +360,7 @@ conv3d_k3s1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   // ---- epilogue: the f32 tile through shared memory (C fragment: rows g,
   // g + 8 of m16 tile i, columns t4 * 2, t4 * 2 + 1 of n8 tile j)
   float* cs = reinterpret_cast<float*>(smem);
-  float* s_sum = cs + M * L::CLD;
+  float* s_sum = cs + M * L::CLD;  // WARPS x (sum y, sum y^2) x BN
   {
     const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -344,7 +374,6 @@ conv3d_k3s1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
               make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
   }
-  if (tid < 2 * BN) s_sum[tid] = 0.f;
   __syncthreads();
 
   // each thread: one 16-byte group of 8 channels (the same for all its
@@ -386,7 +415,7 @@ conv3d_k3s1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     }
     *reinterpret_cast<uint4*>(out + o) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
   }
-  if (sums) {
+  if (tsums) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
 #pragma unroll
@@ -395,34 +424,31 @@ conv3d_k3s1_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
         s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], off);
       }
     }
-    if (lane < CG) {
+    if (lane < CG) {  // lane cg holds the warp's sums of its 8 channels
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        atomicAdd(&s_sum[cg * 8 + k], s1[k]);
-        atomicAdd(&s_sum[BN + cg * 8 + k], s2[k]);
+        s_sum[(warp * 2 + 0) * BN + cg * 8 + k] = s1[k];
+        s_sum[(warp * 2 + 1) * BN + cg * 8 + k] = s2[k];
       }
     }
     __syncthreads();
-    if (tid < BN && n0 + tid < Cout) {
-      atomicAdd(&sums[((long long)b * 2 + 0) * Cout + n0 + tid], s_sum[tid]);
-      atomicAdd(&sums[((long long)b * 2 + 1) * Cout + n0 + tid], s_sum[BN + tid]);
-    }
+    store_tile_sums<WARPS, BN>(s_sum, tsums, tid, b, br, gridDim.x / ntiles, n0, Cout);
   }
 }
 
 template <int BN>
 int launch_bf16(const void* x, const void* wt, const float* bias, const void* res, void* out,
-                float* sums, int B, int D, int H, int W, int Cin, int Cout, int circular,
-                int zmode, const dim3& grid, cudaStream_t st) {
+                float* tsums, int D, int H, int W, int Cin, int Cout, int circular, int zmode,
+                const dim3& grid, cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
       conv3d_k3s1_bf16_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<BN>::SMEM);
   if (e != cudaSuccess) return (int)e;
   conv3d_k3s1_bf16_kernel<BN><<<grid, THREADS, Fwd<BN>::SMEM, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bias,
-      static_cast<const bf16*>(res), static_cast<bf16*>(out), sums, D, H, W, Cin, Cout,
+      static_cast<const bf16*>(res), static_cast<bf16*>(out), tsums, D, H, W, Cin, Cout,
       circular, zmode, brick::cdiv(H, brick::BH), brick::cdiv(W, brick::BW),
       brick::cdiv(Cout, BN));
-  return 0;
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -490,7 +516,7 @@ __device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t* a, uint
 // plane w (4 m16 tiles) x BN. Shared memory: the raw chunk, its hi / lo
 // split (a voxel's row: hi of channels 0-3, 4-7, lo of 0-3, 4-7,
 // swizzled), F_WSTAGES steps of weights, the row-offset table and the
-// CTA's column sums. A step is the three ky taps of one (kz, kx), a tap its
+// warps' column sums. A step is the three ky taps of one (kz, kx), a tap its
 // hi, then its lo weights, each BN x 8 in wgmma's canonical K-major layout.
 template <int BN> struct F32 {
   static constexpr int THREADS = WARPS * 32;
@@ -502,7 +528,7 @@ template <int BN> struct F32 {
   static constexpr int WB = HL + F_HL;
   static constexpr int OFF = WB + F_WSTAGES * WSTEP;
   static constexpr int SUM = OFF + brick::NH * 4;
-  static constexpr int SMEM = SUM + 2 * BN * 4;
+  static constexpr int SMEM = SUM + WARPS * 2 * BN * 4;
   static constexpr int MINB = BN == 16 ? 3 : 2;  // CTAs an SM
   static_assert(NT * 8 == BN, "whole n8 tiles");
   static_assert(MINB * (SMEM + 1024) <= 233472, "CTAs an SM fit its shared memory");
@@ -524,14 +550,16 @@ __global__ void conv3d_k3s1_f32_wsplit_kernel(const float* __restrict__ wt,
 
 // The conv over steps [s0, s1) of this CTA's K split (a step is one 8-channel
 // chunk against one (kz, kx): its three ky taps). With one split the
-// epilogue adds bias and residual and takes the sums; with more, the CTA
-// writes its partial sums to part[split] for conv3d_k3s1_f32_reduce_kernel.
+// epilogue adds bias and residual and writes the CTA's GroupNorm sums to
+// its row of the workspace tsums (B, bricks, 2, Cout); with more, the CTA
+// writes its partial products to part[split] for
+// conv3d_k3s1_f32_reduce_kernel.
 template <int BN>
 __global__ void __launch_bounds__(F32<BN>::THREADS, F32<BN>::MINB)
 conv3d_k3s1_f32_kernel(const float* __restrict__ x, const float* __restrict__ ws,
                        const float* __restrict__ bias, const float* __restrict__ res,
                        float* __restrict__ out, float* __restrict__ part,
-                       float* __restrict__ sums, int D, int H, int W, int Cin, int Cout,
+                       float* __restrict__ tsums, int D, int H, int W, int Cin, int Cout,
                        int circular, int zmode, int nbh, int nbw, int ntiles, int ksplit) {
   using namespace brick;
   using L = F32<BN>;
@@ -561,7 +589,6 @@ conv3d_k3s1_f32_kernel(const float* __restrict__ x, const float* __restrict__ ws
     const int sw = in_plane(w0 - 1 + hw, W, circ);
     s_off[v] = (sd < 0 || sh < 0 || sw < 0) ? -1 : (sd * H + sh) * W + sw;
   }
-  if (tid < 2 * BN) s_sum[tid] = 0.f;
   __syncthreads();
 
   // chunk c of the haloed brick, as it is, into the raw buffer
@@ -741,7 +768,7 @@ conv3d_k3s1_f32_kernel(const float* __restrict__ x, const float* __restrict__ ws
         q2[j][1] += v1 * v1;
       }
     }
-  if (sums) {
+  if (tsums) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -751,27 +778,26 @@ conv3d_k3s1_f32_kernel(const float* __restrict__ x, const float* __restrict__ ws
           q1[j][k] += __shfl_xor_sync(0xffffffffu, q1[j][k], off);
           q2[j][k] += __shfl_xor_sync(0xffffffffu, q2[j][k], off);
         }
-    if (g == 0) {
+    if (g == 0) {  // lanes 0-3 hold the warp's sums of their columns
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           const int cl = 8 * j + 2 * t4 + k;
-          atomicAdd(&s_sum[cl], q1[j][k]);
-          atomicAdd(&s_sum[BN + cl], q2[j][k]);
+          s_sum[(warp * 2 + 0) * BN + cl] = q1[j][k];
+          s_sum[(warp * 2 + 1) * BN + cl] = q2[j][k];
         }
     }
     __syncthreads();
-    if (tid < BN && n0 + tid < Cout) {
-      atomicAdd(&sums[((long long)b * 2 + 0) * Cout + n0 + tid], s_sum[tid]);
-      atomicAdd(&sums[((long long)b * 2 + 1) * Cout + n0 + tid], s_sum[BN + tid]);
-    }
+    store_tile_sums<WARPS, BN>(s_sum, tsums, tid, b, br, gridDim.x / ntiles, n0, Cout);
   }
 }
 
 // The K splits' partial sums added in split order (so y is the same bit for
-// bit from run to run), then bias and residual, the output and its sums. A
-// thread takes one 4-channel group of every (R_THREADS / (Cout / 4))-th
+// bit from run to run), then bias and residual, the output and its sums:
+// the CTA's (sum y, sum y^2), its threads' partials added in thread order,
+// go to row blockIdx.x of the workspace tsums (B, cdiv(S, R_VOX), 2, Cout).
+// A thread takes one 4-channel group of every (R_THREADS / (Cout / 4))-th
 // voxel of the CTA's R_VOX, so Cout is at most R_MAX_COUT (make_plan splits
 // K only there).
 constexpr int R_THREADS = 256, R_VOX = 64, R_MAX_COUT = 4 * R_THREADS;
@@ -779,13 +805,11 @@ constexpr int R_THREADS = 256, R_VOX = 64, R_MAX_COUT = 4 * R_THREADS;
 __global__ void __launch_bounds__(R_THREADS)
 conv3d_k3s1_f32_reduce_kernel(const float* __restrict__ part, const float* __restrict__ bias,
                               const float* __restrict__ res, float* __restrict__ out,
-                              float* __restrict__ sums, long long S, int Cout, int ksplit) {
-  extern __shared__ float r_sum[];  // 2 * Cout
+                              float* __restrict__ tsums, long long S, int Cout, int ksplit) {
+  extern __shared__ float r_sum[];  // lanes x (sum y, sum y^2) x Cout
   const int tid = threadIdx.x, b = blockIdx.y;
   const int CG = Cout / 4, lanes = R_THREADS / CG;
   const int cg = tid % CG, vi = tid / CG;
-  for (int i = tid; i < 2 * Cout; i += R_THREADS) r_sum[i] = 0.f;
-  __syncthreads();
   const long long pstride = (long long)gridDim.y * S * Cout;
   const long long v0 = (long long)blockIdx.x * R_VOX;
   const long long v1 = v0 + R_VOX < S ? v0 + R_VOX : S;
@@ -819,20 +843,124 @@ conv3d_k3s1_f32_reduce_kernel(const float* __restrict__ part, const float* __res
       }
     }
   }
-  if (sums) {
+  if (tsums) {
     if (vi < lanes) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        atomicAdd(&r_sum[4 * cg + k], s1[k]);
-        atomicAdd(&r_sum[Cout + 4 * cg + k], s2[k]);
+        r_sum[(vi * 2 + 0) * Cout + 4 * cg + k] = s1[k];
+        r_sum[(vi * 2 + 1) * Cout + 4 * cg + k] = s2[k];
       }
     }
     __syncthreads();
-    for (int i = tid; i < Cout; i += R_THREADS) {
-      atomicAdd(&sums[((long long)b * 2 + 0) * Cout + i], r_sum[i]);
-      atomicAdd(&sums[((long long)b * 2 + 1) * Cout + i], r_sum[Cout + i]);
+    float* row = tsums + ((long long)b * gridDim.x + blockIdx.x) * 2 * Cout;
+    for (int i = tid; i < 2 * Cout; i += R_THREADS) {
+      float v = r_sum[i];
+      for (int l = 1; l < lanes; ++l) v += r_sum[l * 2 * Cout + i];
+      row[i] = v;
     }
   }
+}
+
+// reduce kernel's shared memory: each thread group's (sum y, sum y^2) x Cout
+int reduce_smem(int Cout) { return R_THREADS / (Cout / 4) * 2 * Cout * 4; }
+
+// ------------------------------------------------------- the sums' fold
+
+// The rows of the sums workspace (B, T, 2, Cout) added in index order into
+// the (B, 2, Cout) output. CTA (column group, segment, b): 128 columns of the
+// row (a float4 a lane), rows [T seg / segs, T (seg + 1) / segs), warp w the
+// w-th of FOLD_WARPS contiguous runs of them, each run added in index order,
+// the runs' totals in warp order. With one segment that is the result; with
+// more, each CTA writes its segment's partial to part (B, column groups,
+// segs, 128) and the last CTA of its (column group, b) to take a ticket adds
+// the partials in segment order and resets the ticket.
+constexpr int FOLD_THREADS = 256, FOLD_WARPS = FOLD_THREADS / 32;
+constexpr int FOLD_COLS = 128;     // columns of a CTA (2 Cout a row)
+constexpr int FOLD_MIN_ROWS = 64;  // the fewest rows of a segment
+constexpr int FOLD_MAX_SEGS = 64;  // the most segments a last CTA adds
+
+__global__ void __launch_bounds__(FOLD_THREADS)
+conv3d_k3s1_sums_fold_kernel(const float* __restrict__ ws, float* __restrict__ part,
+                             int* __restrict__ tickets, float* __restrict__ sums, int T,
+                             int C2) {
+  __shared__ float4 s_run[FOLD_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cgrp = blockIdx.x, seg = blockIdx.y, b = blockIdx.z, segs = gridDim.y;
+  const int col = cgrp * FOLD_COLS + 4 * lane;
+  const bool ok = col < C2;  // C2 is a multiple of 16: whole float4s
+  const int r0 = (int)((long long)T * seg / segs), n = (int)((long long)T * (seg + 1) / segs) - r0;
+  const int t0 = r0 + n * warp / FOLD_WARPS, t1 = r0 + n * (warp + 1) / FOLD_WARPS;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ok) {
+    const float* p = ws + (long long)b * T * C2 + col;
+    for (int t = t0; t < t1; ++t) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(p + (long long)t * C2));
+      a.x += v.x;
+      a.y += v.y;
+      a.z += v.z;
+      a.w += v.w;
+    }
+  }
+  s_run[warp][lane] = a;
+  __syncthreads();
+  if (warp != 0) return;
+  float4 c = s_run[0][lane];
+#pragma unroll
+  for (int w = 1; w < FOLD_WARPS; ++w) {
+    c.x += s_run[w][lane].x;
+    c.y += s_run[w][lane].y;
+    c.z += s_run[w][lane].z;
+    c.w += s_run[w][lane].w;
+  }
+  float4* out = reinterpret_cast<float4*>(sums + (long long)b * C2 + col);
+  if (segs == 1) {
+    if (ok) *out = c;
+    return;
+  }
+  const int slot = b * gridDim.x + cgrp;
+  float* pp = part + (long long)slot * segs * FOLD_COLS + 4 * lane;
+  *reinterpret_cast<float4*>(pp + seg * FOLD_COLS) = c;
+  __threadfence();  // the partial is visible before the ticket is taken
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(&tickets[slot], 1) == segs - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  float4 d = __ldcg(reinterpret_cast<const float4*>(pp));
+  for (int s = 1; s < segs; ++s) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(pp + s * FOLD_COLS));
+    d.x += v.x;
+    d.y += v.y;
+    d.z += v.z;
+    d.w += v.w;
+  }
+  if (ok) *out = d;
+  if (lane == 0) tickets[slot] = 0;  // ready for the next launch
+}
+
+// The fold's plan: {workspace rows T, column groups, segments, threads}.
+constexpr int FOLD_PLAN_LEN = 4;
+
+void make_fold_plan(int T, int Cout, int B, int sms, int* p) {
+  const int groups = brick::cdiv(2 * Cout, FOLD_COLS);
+  int segs = brick::cdiv(2 * sms, groups * B);  // two waves of CTAs
+  const int most = brick::cdiv(T, FOLD_MIN_ROWS);
+  if (segs > most) segs = most;
+  if (segs > FOLD_MAX_SEGS) segs = FOLD_MAX_SEGS;
+  if (segs < 1) segs = 1;
+  p[0] = T;
+  p[1] = groups;
+  p[2] = segs;
+  p[3] = FOLD_THREADS;
+}
+
+int launch_fold(const float* ws, float* part, int* tickets, float* sums, int B, int T, int Cout,
+                int sms, cudaStream_t st) {
+  int f[FOLD_PLAN_LEN];
+  make_fold_plan(T, Cout, B, sms, f);
+  conv3d_k3s1_sums_fold_kernel<<<dim3((unsigned)f[1], (unsigned)f[2], (unsigned)B),
+                                 FOLD_THREADS, 0, st>>>(ws, part, tickets, sums, T, 2 * Cout);
+  return (int)cudaGetLastError();
 }
 
 // The launch plan: {kind (1 = bricks), tile d, h, w, output channels a CTA,
@@ -877,7 +1005,7 @@ void make_plan(int dtype, int B, int D, int H, int W, int Cin, int Cout, int sms
 
 template <int BN>
 int launch_f32(const float* x, const float* wt, const float* bias, const float* res, float* out,
-               float* sums, float* scratch, int B, int D, int H, int W, int Cin, int Cout,
+               float* tsums, float* scratch, int B, int D, int H, int W, int Cin, int Cout,
                int circular, int zmode, const int* p, cudaStream_t st) {
   using L = F32<BN>;
   const int n = 27 * Cout * Cin;
@@ -892,16 +1020,23 @@ int launch_f32(const float* x, const float* wt, const float* bias, const float* 
   if (e != cudaSuccess) return (int)e;
   conv3d_k3s1_f32_kernel<BN><<<dim3((unsigned)p[5], (unsigned)p[6], (unsigned)p[7]), L::THREADS,
                                L::SMEM, st>>>(
-      x, ws, bias, res, out, ksplit > 1 ? part : nullptr, ksplit > 1 ? nullptr : sums, D, H, W,
-      Cin, Cout, circular, zmode, brick::cdiv(H, brick::BH), brick::cdiv(W, brick::BW),
+      x, ws, bias, res, out, ksplit > 1 ? part : nullptr, ksplit > 1 ? nullptr : tsums, D, H,
+      W, Cin, Cout, circular, zmode, brick::cdiv(H, brick::BH), brick::cdiv(W, brick::BW),
       brick::cdiv(Cout, BN), ksplit);
   e = cudaGetLastError();
   if (e != cudaSuccess || ksplit == 1) return (int)e;
   const long long S = (long long)D * H * W;
   conv3d_k3s1_f32_reduce_kernel<<<dim3((unsigned)((S + R_VOX - 1) / R_VOX), (unsigned)B),
-                                  R_THREADS, 2 * Cout * 4, st>>>(part, bias, res, out, sums, S,
-                                                                 Cout, ksplit);
+                                  R_THREADS, reduce_smem(Cout), st>>>(part, bias, res, out, tsums,
+                                                                      S, Cout, ksplit);
   return (int)cudaGetLastError();
+}
+
+// Rows of the sums workspace: the conv's bricks, or the reduce kernel's
+// runs of R_VOX voxels where the plan splits K (f32).
+int sums_rows(const int* p, int D, int H, int W) {
+  if (p[10] > 1) return (int)(((long long)D * H * W + R_VOX - 1) / R_VOX);
+  return brick::cdiv(D, brick::BD) * brick::cdiv(H, brick::BH) * brick::cdiv(W, brick::BW);
 }
 
 int sm_count() {
@@ -923,51 +1058,75 @@ extern "C" int conv3d_k3s1_fwd_plan(int dtype, int B, int D, int H, int W, int C
   return 0;
 }
 
+// The plan of the sums' fold after conv3d_k3s1_fwd at these sizes on a card
+// of sms SMs (0: the current device's), for the check against
+// ops/kernels/conv3d.py::sums_plan. Returns 0.
+extern "C" int conv3d_k3s1_sums_plan(int dtype, int B, int D, int H, int W, int Cin, int Cout,
+                                     int sms, int* plan) {
+  if (sms <= 0) sms = sm_count();
+  int p[PLAN_LEN];
+  make_plan(dtype, B, D, H, W, Cin, Cout, sms, p);
+  make_fold_plan(sums_rows(p, D, H, W), Cout, B, sms, plan);
+  return 0;
+}
+
 // x (B, Din, H, W, Cin) with Din = D, D + 2 or D - 2 for zmode 0, 1 or 2,
 // wt (27, Cout, Cin) in the same dtype (0 = f32, 1 = bf16), bias (Cout) f32
 // or null, res (B, D, H, W, Cout) or null, out (B, D, H, W, Cout), sums
-// (B, 2, Cout) f32 zero-filled or null. f32 also takes scratch: 54 Cout Cin
-// floats for the split weights, then, where the plan splits K into ks > 1,
-// ks B D H W Cout for the partial sums (ops/kernels/conv3d.py::
-// fwd_scratch_floats, at the same sms, the SM count the plan is made for,
-// so that the caller's scratch fits the plan); bf16 none. Cin and Cout are
-// multiples of 8; every pointer is 16-byte aligned. Returns
+// (B, 2, Cout) f32 or null (written whole, never read). f32 also takes
+// scratch: 54 Cout Cin floats for the split weights, then, where the plan
+// splits K into ks > 1, ks B D H W Cout for the partial sums
+// (ops/kernels/conv3d.py::fwd_scratch_floats); bf16 none. With sums, fold
+// takes the sums workspace, B T 2 Cout floats, then B groups segs 128 for
+// the segments' partials, and tickets B groups int32, 0 on entry and on
+// return (conv3d_k3s1_sums_plan: T, groups, segs). The plans are made for
+// sms SMs, which the caller's scratch and workspace were sized at. Cin and
+// Cout are multiples of 8; every pointer is 16-byte aligned. Returns
 // cudaGetLastError() after the launches.
 extern "C" int conv3d_k3s1_fwd(int dtype, const void* x, const void* wt, const float* bias,
-                               const void* res, void* out, float* sums, float* scratch, int B,
-                               int D, int H, int W, int Cin, int Cout, int circular, int zmode,
-                               int sms, void* stream) {
+                               const void* res, void* out, float* sums, float* scratch,
+                               float* fold, int* tickets, int B, int D, int H, int W, int Cin,
+                               int Cout, int circular, int zmode, int sms, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (zmode < 0 || zmode > 2 || (zmode == 2 && D < 3)) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && (scratch == nullptr || sms <= 0)) return (int)cudaErrorInvalidValue;
+  if (sms <= 0 || (dtype == 0 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  if (sums && (fold == nullptr || tickets == nullptr)) return (int)cudaErrorInvalidValue;
   int p[PLAN_LEN];
   make_plan(dtype, B, D, H, W, Cin, Cout, sms, p);
+  const int T = sums_rows(p, D, H, W);
+  float* tsums = sums ? fold : nullptr;
   const dim3 grid((unsigned)p[5], (unsigned)p[6], (unsigned)p[7]);
+  int err;
   if (dtype == 1) {
-    const int err = p[4] == 64 ? launch_bf16<64>(x, wt, bias, res, out, sums, B, D, H, W, Cin,
-                                                 Cout, circular, zmode, grid, st)
-                               : launch_bf16<32>(x, wt, bias, res, out, sums, B, D, H, W, Cin,
-                                                 Cout, circular, zmode, grid, st);
-    if (err) return err;
-    return (int)cudaGetLastError();
+    err = p[4] == 64 ? launch_bf16<64>(x, wt, bias, res, out, tsums, D, H, W, Cin, Cout,
+                                       circular, zmode, grid, st)
+                     : launch_bf16<32>(x, wt, bias, res, out, tsums, D, H, W, Cin, Cout,
+                                       circular, zmode, grid, st);
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(wt);
+    const float* rf = static_cast<const float*>(res);
+    float* of = static_cast<float*>(out);
+    switch (p[4]) {
+      case 64:
+        err = launch_f32<64>(xf, wf, bias, rf, of, tsums, scratch, B, D, H, W, Cin, Cout,
+                             circular, zmode, p, st);
+        break;
+      case 48:
+        err = launch_f32<48>(xf, wf, bias, rf, of, tsums, scratch, B, D, H, W, Cin, Cout,
+                             circular, zmode, p, st);
+        break;
+      case 32:
+        err = launch_f32<32>(xf, wf, bias, rf, of, tsums, scratch, B, D, H, W, Cin, Cout,
+                             circular, zmode, p, st);
+        break;
+      default:
+        err = launch_f32<16>(xf, wf, bias, rf, of, tsums, scratch, B, D, H, W, Cin, Cout,
+                             circular, zmode, p, st);
+    }
   }
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(wt);
-  const float* rf = static_cast<const float*>(res);
-  float* of = static_cast<float*>(out);
-  switch (p[4]) {
-    case 64:
-      return launch_f32<64>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
-                            zmode, p, st);
-    case 48:
-      return launch_f32<48>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
-                            zmode, p, st);
-    case 32:
-      return launch_f32<32>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
-                            zmode, p, st);
-    default:
-      return launch_f32<16>(xf, wf, bias, rf, of, sums, scratch, B, D, H, W, Cin, Cout, circular,
-                            zmode, p, st);
-  }
+  if (err || !sums) return err;
+  return launch_fold(tsums, tsums + (long long)B * T * 2 * Cout, tickets, sums, B, T, Cout, sms,
+                     st);
 }

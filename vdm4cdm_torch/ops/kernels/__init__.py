@@ -1,8 +1,9 @@
 """Hand-written CUDA/Triton kernels of the port, each beside its plain
 PyTorch version. CPU tensors take the plain version; CUDA tensors take the
 kernel. Each wrapper counts its launches in ``<wrapper>.launches``; the
-wrappers whose call launches more than one CUDA kernel (the conv forward's
-f32 path) count those in ``<wrapper>.cuda_launches`` too."""
+wrappers whose call may launch more than one CUDA kernel (the conv forward:
+its f32 path, and the fold of its GroupNorm sums) count those in
+``<wrapper>.cuda_launches`` too."""
 
 from .conv3d import (conv3d_k3s1_dw, conv3d_k3s1_dw_plain, conv3d_k3s1_dx,
                      conv3d_k3s1_fwd, conv3d_k3s1_plain, conv3d_k3s1_zhalo_dw,

@@ -24,6 +24,17 @@ steps split over CTAs with a second kernel adding the partials in a fixed
 order. Bound: 3 x 2 x 27 Cin Cout operations a voxel at 495 TFLOP/s. The
 source file says more.
 
+The sums are the same bits from run to run: each CTA writes its own
+(sum y, sum y^2) per channel to its row of a workspace (B, T, 2, Cout), its
+warps' partials added in warp order, and a small fold kernel adds the T rows
+in an order fixed by the shapes (:func:`sums_plan`, :func:`fold_runs`):
+segments of contiguous rows, each cut into one contiguous run a warp, each
+run in index order, the runs in warp order, the segments' partials in
+segment order by the last CTA of a (column group, batch) to take a ticket.
+No float atomics; the workspace and the tickets are kept per device and
+stream by the wrapper (:func:`_sums_work`), so a call allocates nothing for
+them.
+
 The plain version computes the same function with ``torch.nn.functional.
 conv3d`` in f32. CPU tensors go to it; CUDA tensors go to the kernel.
 
@@ -186,10 +197,10 @@ def _fwd_f32_bn(cout):
 
 def _fwd_f32_smem(bn):
     """The raw chunk, its hi / lo split, three steps of weights (three taps
-    x bn x 8 channels, hi and lo), the row-offset table, the column sums
-    (``F32<BN>`` in the source)."""
+    x bn x 8 channels, hi and lo), the row-offset table, the four warps'
+    column sums (``F32<BN>`` in the source)."""
     return (_NH * FWD_F32_KC * 4 + _NH * FWD_F32_KC * 8 + 3 * 3 * bn * 64
-            + _NH * 4 + 2 * bn * 4)
+            + _NH * 4 + 4 * 2 * bn * 4)
 
 
 DW_TILE, DW_STAGES, DW_THREADS = 32, 2, 256
@@ -266,6 +277,62 @@ def fwd_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> FwdPlan:
                    _fwd_f32_smem(bn), ksplit)
 
 
+# the sums' fold (``conv3d_k3s1_sums_fold_kernel``): threads a CTA (8
+# warps), columns of a workspace row a CTA (a float4 a lane), the fewest rows
+# a segment takes, the most segments the last CTA adds
+FOLD_THREADS, FOLD_COLS, FOLD_MIN_ROWS, FOLD_MAX_SEGS = 256, 128, 64, 64
+FWD_REDUCE_VOX = 64  # voxels a CTA of the K splits' reduce kernel
+
+
+class SumsPlan(NamedTuple):
+    """The fold of a forward's GroupNorm sums: ``rows`` tile rows (T) of
+    the workspace (B, T, 2, Cout), added by a grid of (``groups`` column
+    groups of 128, ``segments``, B) CTAs of ``threads``."""
+    rows: int
+    groups: int
+    segments: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def sums_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> SumsPlan:
+    """The sums' fold after a forward launch of (B, D, H, W) output planes
+    (any z mode) on a card of ``sms`` SMs: the workspace's rows are the
+    plan's bricks, or the reduce kernel's runs of 64 voxels where the f32
+    plan splits K; two waves of CTAs, each segment at least 64 rows, at most
+    64 segments."""
+    plan = fwd_plan(dtype, B, D, H, W, cin, cout, sms)
+    if plan.ksplit > 1:
+        rows = _cdiv(D * H * W, FWD_REDUCE_VOX)
+    else:
+        rows = math.prod(_cdiv(n, t) for n, t in zip((D, H, W), BRICK))
+    groups = _cdiv(2 * cout, FOLD_COLS)
+    segs = min(_cdiv(2 * sms, groups * B), _cdiv(rows, FOLD_MIN_ROWS),
+               FOLD_MAX_SEGS)
+    return SumsPlan(rows, groups, max(1, segs), FOLD_THREADS)
+
+
+def sums_workspace(plan: SumsPlan, B: int, cout: int) -> Tuple[int, int]:
+    """(f32 floats, int32 tickets) of a fold: the rows (B, T, 2, Cout),
+    then the segments' partials (B, groups, segments, 128); a ticket per
+    (batch, column group)."""
+    return (B * plan.rows * 2 * cout
+            + B * plan.groups * plan.segments * FOLD_COLS,
+            B * plan.groups)
+
+
+def fold_runs(plan: SumsPlan):
+    """The fold's order: (segment, warp, first row, end row) of each run,
+    in the order the runs' totals are added (a run's rows in index order).
+    The same for every column group and batch."""
+    warps = plan.threads // 32
+    for seg in range(plan.segments):
+        r0 = plan.rows * seg // plan.segments
+        n = plan.rows * (seg + 1) // plan.segments - r0
+        for w in range(warps):
+            yield seg, w, r0 + n * w // warps, r0 + n * (w + 1) // warps
+
+
 def fwd_scratch_floats(plan: FwdPlan, B, D, H, W, cin, cout) -> int:
     """f32 scratch of a forward launch: the weights split into hi and lo,
     and the K splits' partial outputs where there is more than one."""
@@ -291,15 +358,15 @@ def dw_plan(dtype, B, D, H, W, cin, cout, sms=SMS) -> DwPlan:
 
 
 def compiled_plans(dtype, B, D, H, W, cin, cout):
-    """(forward, dw) plans as the compiled sources report them at the
-    card's SM count; on the machine with the card."""
+    """(forward, dw, sums' fold) plans as the compiled sources report them
+    at the card's SM count; on the machine with the card."""
     code = DTYPE_CODE[dtype]
+    args = (code, B, D, H, W, cin, cout, 0)
     out = []
-    for source, name, n, cls, args in (
-            ("conv3d_fwd.cu", "conv3d_k3s1_fwd_plan", 11, FwdPlan,
-             (code, B, D, H, W, cin, cout, 0)),
-            ("conv3d_dw.cu", "conv3d_k3s1_dw_plan", 11, DwPlan,
-             (code, B, D, H, W, cin, cout, 0))):
+    for source, name, n, cls in (
+            ("conv3d_fwd.cu", "conv3d_k3s1_fwd_plan", 11, FwdPlan),
+            ("conv3d_dw.cu", "conv3d_k3s1_dw_plan", 11, DwPlan),
+            ("conv3d_fwd.cu", "conv3d_k3s1_sums_plan", 4, SumsPlan)):
         from ._build import c_function
 
         fn = c_function(source, name,
@@ -317,6 +384,26 @@ def _fn(source, name, n_ptrs, n_ints):
     return c_function(source, name, [i] + [p] * n_ptrs + [i] * n_ints + [p])
 
 
+# (device, stream) -> the sums' fold workspace there: f32 rows and
+# partials, int32 tickets (0 between launches: the fold resets them); grown
+# where a call needs more, never shrunk
+_SUMS_WORK: dict = {}
+
+
+def _sums_work(dev, floats: int, tickets: int):
+    """(f32 workspace, int32 tickets) of the fold on ``dev``'s current
+    stream, at least ``floats`` and ``tickets`` long. Kernels on one stream
+    run in order, so each call may reuse what the last one used."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    ws, tk = _SUMS_WORK.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    if tk is None or tk.numel() < tickets:
+        tk = torch.zeros(tickets, dtype=torch.int32, device=dev)
+    _SUMS_WORK[key] = ws, tk
+    return ws, tk
+
+
 def _check_weights(x, w, cin):
     if tuple(w.shape[:3]) != (3, 3, 3) or w.ndim != 5 or w.shape[3] != cin:
         raise ValueError(f"w shape {tuple(w.shape)} does not fit x "
@@ -331,7 +418,8 @@ def _launch_fwd(name, x, w, bias, residual, circular, with_sums, d_out,
                 zmode):
     """Launch ``csrc/conv3d_fwd.cu`` in ``zmode`` on x (B, Din, H, W, Cin)
     for d_out output planes. Returns (out, sums, the CUDA kernels launched:
-    f32 adds the weight split and, where K is split, the reduce)."""
+    f32 adds the weight split and, where K is split, the reduce; the sums
+    add their fold)."""
     B, _, H, W, cin = x.shape
     cout = w.shape[4]
     dev = x.device
@@ -342,21 +430,24 @@ def _launch_fwd(name, x, w, bias, residual, circular, with_sums, d_out,
     wt = wt.contiguous()
     bias_f = bias.float().contiguous() if bias is not None else None
     out = torch.empty((B, d_out, H, W, cout), dtype=x.dtype, device=dev)
-    sums = (torch.zeros((B, 2, cout), dtype=torch.float32, device=dev)
-            if with_sums else None)
-    scratch, sms, n_kernels = None, 0, 1
+    sums = scratch = fold = tickets = None
+    sms, n_kernels = sm_count(dev), 1
     if x.dtype == torch.float32:
-        sms = sm_count(dev)
         plan = fwd_plan(x.dtype, B, d_out, H, W, cin, cout, sms)
         scratch = torch.empty(
             fwd_scratch_floats(plan, B, d_out, H, W, cin, cout),
             dtype=torch.float32, device=dev)
         n_kernels = 2 + (plan.ksplit > 1)
-    operands = (x, wt, bias_f, residual, out, sums, scratch)
+    if with_sums:
+        sums = torch.empty((B, 2, cout), dtype=torch.float32, device=dev)
+        fold, tickets = _sums_work(dev, *sums_workspace(
+            sums_plan(x.dtype, B, d_out, H, W, cin, cout, sms), B, cout))
+        n_kernels += 1
+    operands = (x, wt, bias_f, residual, out, sums, scratch, fold, tickets)
     check_aligned(name, *operands)
     ptrs = [t.data_ptr() if t is not None else None for t in operands]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn("conv3d_fwd.cu", "conv3d_k3s1_fwd", 7, 9)(
+    err = _fn("conv3d_fwd.cu", "conv3d_k3s1_fwd", 9, 9)(
         DTYPE_CODE[x.dtype], *ptrs, B, d_out, H, W, cin, cout,
         int(bool(circular)), zmode, sms, stream)
     if err:
@@ -540,9 +631,9 @@ conv3d_k3s1_dw.launches = 0
 conv3d_k3s1_zhalo_fwd.launches = 0
 conv3d_k3s1_zhalo_dx.launches = 0
 conv3d_k3s1_zhalo_dw.launches = 0
-# The forward kernel's f32 calls launch two or three CUDA kernels each (the
-# weight split, the conv, the K splits' reduce): ``cuda_launches`` counts
-# them all, ``launches`` the calls.
+# The forward kernel's calls launch one to four CUDA kernels each (f32: the
+# weight split and, where K is split, the reduce; with sums, their fold):
+# ``cuda_launches`` counts them all, ``launches`` the calls.
 conv3d_k3s1_fwd.cuda_launches = 0
 conv3d_k3s1_zhalo_fwd.cuda_launches = 0
 conv3d_k3s1_zhalo_dx.cuda_launches = 0

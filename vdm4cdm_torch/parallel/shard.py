@@ -72,21 +72,37 @@ def process_rank() -> Tuple[int, int]:
     return 0, 1
 
 
+def data_process(n_sp: int) -> Tuple[int, int]:
+    """(data index, n_data) of this process in a job laid out as an
+    (n_data, n_sp) mesh (rank = data_index * n_sp + sp_index), else (0, 1):
+    which block of a global batch's rows a data module serves."""
+    rank, world = process_rank()
+    if world == 1:
+        return 0, 1
+    if world % n_sp:
+        raise ValueError(f"{world} ranks do not make a mesh of sp = {n_sp}")
+    return rank // n_sp, world // n_sp
+
+
 def make_shard_ctx(mesh: Mesh) -> ShardCtx:
     """The :class:`ShardCtx` of this rank on ``mesh``."""
     return ShardCtx(group=mesh.sp_group, ranks=mesh.sp_ranks, spatial_dim=0,
                     data_group=mesh.data_group, data_ranks=mesh.data_ranks)
 
 
-def local_slab(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+def local_slab(x: torch.Tensor, ctx: ShardCtx, rows: bool = True
+               ) -> torch.Tensor:
     """This rank's block of a global (B, D, H, W, C) field: its data rank's
     batch rows and its ``sp`` rank's planes of D. A (B, d) vector (a
-    conditioning value) is split on the batch only."""
-    b = x.shape[0]
-    if b % ctx.data_size:
-        raise ValueError(f"batch {b} over {ctx.data_size} data ranks")
-    lb = b // ctx.data_size
-    x = x.narrow(0, ctx.data_index * lb, lb)
+    conditioning value) is split on the batch only. ``rows=False``: x holds
+    this data rank's rows already (a data module that serves its process's
+    block), and only the planes are taken."""
+    if rows:
+        b = x.shape[0]
+        if b % ctx.data_size:
+            raise ValueError(f"batch {b} over {ctx.data_size} data ranks")
+        lb = b // ctx.data_size
+        x = x.narrow(0, ctx.data_index * lb, lb)
     if x.ndim >= 3 and ctx.sharded:
         dim, n = ctx.array_dim, x.shape[ctx.array_dim]
         if n % ctx.size:
@@ -99,7 +115,12 @@ def local_slab(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
 def gather_slab(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     """Inverse of :func:`local_slab` on every rank: the global field from
     each rank's block (an all-gather over ``sp``, then over ``data``)."""
-    x = all_gather_spatial(x, ctx)
+    return gather_rows(all_gather_spatial(x, ctx), ctx)
+
+
+def gather_rows(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The global batch from each data rank's rows of it, on every rank
+    (the rows' part of :func:`gather_slab`)."""
     if ctx.data_group is None:
         return x
     lb = x.shape[0]

@@ -13,6 +13,10 @@ kept (the reference's ``save_top_k=-1``). A file is written under a
 temporary name in its step directory and moved into place with
 ``os.replace``, so a step whose file exists is complete.
 
+In a sharded run every rank holds the same parameters; rank 0 alone writes
+(``Trainer`` in ``loop.py``: the ranks' :func:`params_digest` compared
+first, a barrier after), and every rank restores the step rank 0 names.
+
 Errors say what they are: a missing directory or step is a
 ``FileNotFoundError``; an unreadable file raises the error that reading it
 raised; a directory that holds a JAX (orbax) checkpoint raises
@@ -21,6 +25,7 @@ raised; a directory that holds a JAX (orbax) checkpoint raises
 
 from __future__ import annotations
 
+import hashlib
 import os
 import tempfile
 import time
@@ -121,12 +126,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def due(self, step: int, force: bool = False) -> bool:
+        """Whether ``step`` is a save step (every ``every_steps``-th, or any
+        with ``force``); a function of the step alone, so that the ranks of
+        a sharded run agree on it without talking."""
+        return bool(force or (self.every_steps
+                              and step % self.every_steps == 0))
+
     def maybe_save(self, state: TrainState, force: bool = False) -> bool:
         """Save at every ``every_steps``-th step, or now with ``force``;
         never twice for one step."""
         step = int(state.step)
-        due = force or (self.every_steps and step % self.every_steps == 0)
-        if not due or step in self.all_steps():
+        if not self.due(step, force) or step in self.all_steps():
             return False
         self.save(state)
         return True
@@ -177,6 +188,23 @@ class CheckpointManager:
             _copy_into(state.ema_params, saved_ema, "ema_params")
         state.step = int(payload["step"])
         return state
+
+
+def params_digest(state: TrainState) -> str:
+    """A SHA-256 of the parameters, the EMA and both moments, byte for
+    byte, in parameter-name order: equal on the ranks of a sharded run
+    whose parameters are equal."""
+    h = hashlib.sha256()
+    names = [k for k, _ in state.model.named_parameters()]
+    trees = [dict(state.model.named_parameters()), state.opt_state["mu"],
+             state.opt_state["nu"]]
+    if state.ema_params is not None:
+        trees.append(state.ema_params)
+    for tree in trees:
+        for k in names:
+            h.update(tree[k].detach().contiguous().cpu().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],

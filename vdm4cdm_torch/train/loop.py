@@ -13,6 +13,16 @@ dropout masks) comes from a generator seeded on the host from
 replays the uninterrupted run: bit for bit on the CPU; on the card to f32
 rounding, since ``conv3d_k3s1_dw`` sums with atomics in run-dependent order.
 
+Sharded (the model's UNet holds a ``ctx`` over more than one rank of a
+``torch.distributed`` job, one process a rank), each rank feeds the slab of
+the global batch that its ``ctx`` selects (``local_slab``: its data index's
+rows, its ``sp`` index's planes; a data module that serves its process's
+rows already, CAMELS under ``data_process``, gives the planes only), and
+only the slab goes to the device. Rank 0 alone logs and writes checkpoints;
+at each checkpoint the ranks' parameter digests are compared first (a
+mismatch raises) and every rank waits on a barrier after the write; a
+resume restores, on every rank, the step that rank 0 finds.
+
 Nothing is read back from the device except at log steps and the last step
 (the metrics), at validation and at checkpoints. The logged ``step_s`` and
 ``feed_wait_s`` are the wall seconds per step since the previous log step,
@@ -33,12 +43,13 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.shard import process_rank
+from ..parallel.halo import NO_SHARD, ShardCtx
+from ..parallel.shard import gather_rows, local_slab, process_rank
 from ..utils.rng import seeded_generator
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, params_digest
 from .loggers import ConsoleLogger, CSVLogger, Logger, MultiLogger
 from .state import TrainState, init_ema, make_optimizer
-from .step import make_eval_step, make_train_step
+from .step import make_eval_step, make_train_step, model_ctx
 
 
 @dataclasses.dataclass
@@ -82,31 +93,49 @@ def _tensors(batch: dict):
 
 
 class _DeviceFeeder:
-    """Moves host (numpy) batches to ``device``. ``prefetch`` runs a host
-    iterator in a background thread ``depth`` batches ahead: on the card each
-    batch is copied into fresh pinned host memory and sent with
-    ``non_blocking=True`` on a copy stream of the thread's own, with an event
-    recorded after its copies, so the H2D transfer overlaps the previous
-    step. The consumer's stream waits on that event before the batch is
-    used. A pinned buffer is not reused before its copy has finished:
-    PyTorch's pinned-memory allocator records the copy's stream on it."""
+    """Moves host (numpy) batches to ``device``: under a sharded ``ctx``
+    this rank's slab of each array alone (``rows_local``: the host batch
+    holds this data rank's rows already, so only the planes are taken).
+    ``prefetch`` runs a host iterator in a background thread ``depth``
+    batches ahead: on the card each batch is copied into fresh pinned host
+    memory and sent with ``non_blocking=True`` on a copy stream of the
+    thread's own, with an event recorded after its copies, so the H2D
+    transfer overlaps the previous step. The consumer's stream waits on that
+    event before the batch is used. A pinned buffer is not reused before its
+    copy has finished: PyTorch's pinned-memory allocator records the copy's
+    stream on it."""
 
-    def __init__(self, device: torch.device, depth: int = 2):
+    def __init__(self, device: torch.device, depth: int = 2,
+                 ctx: ShardCtx = NO_SHARD):
         self.device = torch.device(device)
         self.depth = depth
         self.cuda = self.device.type == "cuda"
+        self.ctx = ctx
 
-    def _to_device(self, a) -> torch.Tensor:
+    def _to_device(self, a, slab: bool = False,
+                   rows_local: bool = False) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
+        if slab and self.ctx.world_size > 1:
+            t = local_slab(t, self.ctx, rows=not rows_local)
         if not self.cuda:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def put(self, batch: dict) -> dict:
-        """One batch on the device, ready on the current stream."""
-        return _map_batch(self._to_device, batch)
+    def put(self, batch: dict, rows_local: bool = False) -> dict:
+        """This rank's batch on the device, ready on the current stream."""
+        return _map_batch(
+            lambda a: self._to_device(a, True, rows_local), batch)
 
-    def prefetch(self, host_iter: Iterator[dict]
+    def put_global(self, batch: dict, rows_local: bool = False) -> dict:
+        """The global batch on the device on every rank: the host batch
+        whole, its rows gathered over the data ranks where each holds its
+        own (the sharded samplers take the global conditioning)."""
+        dev = _map_batch(self._to_device, batch)
+        if not (rows_local and self.ctx.data_size > 1):
+            return dev
+        return _map_batch(lambda t: gather_rows(t, self.ctx), dev)
+
+    def prefetch(self, host_iter: Iterator[dict], rows_local: bool = False
                  ) -> Iterator[Tuple[dict, float]]:
         """Yields (device batch, seconds the caller waited for it)."""
         q: queue.Queue = queue.Queue(maxsize=self.depth)
@@ -126,11 +155,11 @@ class _DeviceFeeder:
             try:
                 for batch in host_iter:
                     if not self.cuda:
-                        item = (self.put(batch), None)
+                        item = (self.put(batch, rows_local), None)
                     else:
                         with torch.cuda.device(self.device), \
                                 torch.cuda.stream(stream):
-                            dev = self.put(batch)
+                            dev = self.put(batch, rows_local)
                             ready = torch.cuda.Event()
                             ready.record(stream)
                         item = (dev, ready)
@@ -165,11 +194,12 @@ class _DeviceFeeder:
 
 
 class Trainer:
-    """Trains ``model`` (a VDM or an SFM, its parameters on its device) in
-    place. ``draw_figure(params, batch, generator) -> figure or None`` is an
+    """Trains ``model`` (a VDM or an SFM, its parameters on its device, its
+    UNet holding this rank's ``ctx`` in a sharded run) in place.
+    ``draw_figure(params, batch, generator) -> figure or None`` is an
     optional validation-figure hook, called after each validation with the
     EMA parameters when tracked (else the model's) and the first validation
-    batch."""
+    batch (the global batch, on every rank, in a sharded run)."""
 
     def __init__(
         self,
@@ -181,6 +211,8 @@ class Trainer:
         self.model = model
         self.config = config
         self.device = model.device
+        self.ctx = model_ctx(model)
+        self.rank = process_rank()[0]
         self.optimizer = make_optimizer(
             config.learning_rate, config.grad_clip, config.weight_decay,
             config.warmup_steps,
@@ -208,7 +240,7 @@ class Trainer:
             os.path.join(config.out_dir, config.experiment_name, "checkpoints"),
             every_steps=config.ckpt_every_steps,
         )
-        self._feeder = _DeviceFeeder(self.device)
+        self._feeder = _DeviceFeeder(self.device, ctx=self.ctx)
 
     def init_state(self) -> TrainState:
         """Step 0 with the model's current parameters; the EMA (when
@@ -221,15 +253,34 @@ class Trainer:
         (seed + 1, step), the counterpart of JAX's ``fold_in(base, step)``."""
         return seeded_generator(self.device, self.config.seed + 1, step)
 
+    @property
+    def sharded(self) -> bool:
+        return self.ctx.world_size > 1
+
+    def _from_rank0(self, value):
+        """``value`` as rank 0 has it, on every rank (a sharded run's ranks
+        act on one decision: a step to resume, whether to save)."""
+        if not self.sharded:
+            return value
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     def fit(self, datamodule, max_steps: Optional[int] = None) -> TrainState:
         cfg = self.config
         max_steps = max_steps or cfg.max_steps
+        rows_local = getattr(datamodule, "process_count", 1) > 1
         state = self.init_state()
         if cfg.resume:
-            restored = self.ckpt.restore(state)
-            if restored is not None:
-                state = restored
-                print(f"[trainer] resumed from step {state.step}", flush=True)
+            step = self._from_rank0(self.ckpt.latest_step()
+                                    if self.rank == 0 else None)
+            if step is not None:
+                state = self.ckpt.restore(state, step)
+                if self.rank == 0:
+                    print(f"[trainer] resumed from step {state.step}",
+                          flush=True)
 
         train_step = make_train_step(self.model, self.optimizer,
                                      ema_decay=cfg.ema_decay)
@@ -239,7 +290,7 @@ class Trainer:
         mark, waited, since = t_start, 0.0, 0  # timing since the last log
 
         host_iter = datamodule.train_batches(max_steps, start_step=start_step)
-        for batch, wait in self._feeder.prefetch(host_iter):
+        for batch, wait in self._feeder.prefetch(host_iter, rows_local):
             # state.step is a host int (the step's mirror): no device sync
             state, metrics = train_step(state, batch,
                                         self.step_generator(state.step))
@@ -262,7 +313,8 @@ class Trainer:
 
             side_work = False
             if cfg.val_check_interval and step % cfg.val_check_interval == 0:
-                self._validate(state, datamodule, eval_step, step)
+                self._validate(state, datamodule, eval_step, step,
+                               rows_local)
                 side_work = True
             side_work |= self._save(state)
             if side_work:  # keep validation and checkpoints out of step_s
@@ -271,28 +323,54 @@ class Trainer:
         self._save(state, force=True)
         dt = time.perf_counter() - t_start
         n = state.step - start_step
-        if n > 0:
+        if n > 0 and self.rank == 0:
             print(f"[trainer] {n} steps in {dt:.1f}s ({n / dt:.3f} it/s)",
                   flush=True)
         return state
 
     def _save(self, state: TrainState, force: bool = False) -> bool:
-        if not self.ckpt.maybe_save(state, force=force):
-            return False
+        if not self.sharded:
+            if not self.ckpt.maybe_save(state, force=force):
+                return False
+        else:
+            import torch.distributed as dist
+
+            if not self.ckpt.due(state.step, force):
+                return False
+            if not self._from_rank0(self.rank == 0 and state.step not in
+                                    self.ckpt.all_steps()):
+                return False
+            digests = [None] * dist.get_world_size()
+            dist.all_gather_object(digests, params_digest(state))
+            if len(set(digests)) > 1:
+                raise RuntimeError(
+                    f"the ranks' parameters differ at step {state.step}: "
+                    f"digests {digests}")
+            if self.rank == 0:
+                print(f"[trainer] step {state.step}: the {len(digests)} "
+                      f"ranks' parameters are equal (sha256 {digests[0]})",
+                      flush=True)
+                self.ckpt.save(state)
+            dist.barrier()
+            if self.rank != 0:
+                return True
         info = self.ckpt.last_save
         self.loggers.log_scalars(state.step, {
             "ckpt_save_s": info["seconds"], "ckpt_bytes": info["bytes"]})
         return True
 
-    def _validate(self, state, datamodule, eval_step, step):
+    def _validate(self, state, datamodule, eval_step, step,
+                  rows_local=False):
         agg: dict = {}
         first = None
         for i, batch in enumerate(datamodule.val_dataloader()):
             if i >= self.config.n_val_batches:
                 break
-            dev_batch = self._feeder.put(batch)
+            dev_batch = self._feeder.put(batch, rows_local)
             if first is None:
-                first = dev_batch
+                first = (self._feeder.put_global(batch, rows_local)
+                         if self.sharded and self.draw_figure is not None
+                         else dev_batch)
             metrics = eval_step(dev_batch,
                                 seeded_generator(self.device, self.config.seed,
                                                  step, i))
