@@ -192,14 +192,38 @@ while developing and then prints no ``kernels`` or ``ok`` line):
                 ``cli.train --preset smoke_vdm_2d`` to 3 steps, resumed to
                 5 (launches per step equal to a bare step's of the preset),
                 and ``cli.generate`` CV_12_12 from its checkpoints (12
-                files of (12, 1, 32, 32));
- 16. profile  - device time by kernel and the device's idle share over UNet
+                files of (12, 1, 32, 32)); then ``python -m
+                vdm4cdm_torch.examples.smoke_test --steps 5`` in a process
+                of its own (the panel's arrays without matplotlib);
+ 16. twod_sharded - the 2D presets under ``sp`` sharding: ``entry()`` of
+                ``vdm4cdm_torch/parallel/dryrun.py`` once (the flagship's
+                forward at 32^3, finite), then two ranks on cuda:0 over
+                gloo (as ``sharded``), each holding ``train_uc_c`` (VDM)
+                and ``trainSFM_c_uc`` (SFM, mid_attn: the gathered
+                bottleneck attention) at full width (chs 48..384, f32,
+                dropout off) split along H against unsharded on a 64^2
+                crop, batch 2: eps_hat / velocity and 5 sampler steps within
+                1e-4, the loss and every gradient within 2e-3; then
+                ``cli.train --preset train_uc_c --set parallel.n_sp=2`` at
+                256^2 (global batch 4, GRF, dropout 0.1) for 3 steps with a
+                checkpoint at 2, resumed to 4, ``cli.generate`` of one
+                CV_12_12 box (2 fields a call, 5 steps), one timed call of
+                the sharded sampler and one bare step with the collectives'
+                counters (``CommStats``). Fails unless the parity holds, the
+                CLI exits 0 on both ranks, losses and fields are finite, the
+                ranks' digests agree at every checkpoint, every norm and 1x1
+                kernel launched and no conv3d kernel did. One line for the
+                phase: per-rank s/step (median of steps 2-4), feed wait,
+                peak GiB a rank, the sampler's s/field at 250 steps, the
+                collectives a step, the launches (the ``kernels`` line's
+                ``launches_twod_sharded``);
+ 17. profile  - device time by kernel and the device's idle share over UNet
                 forwards and over a train step at 128^3 (VDM and SFM), and
                 over the blessed model's forward at (12, 32^3) f32 with its
                 3x3x3 convs' GFLOP, rate and share of the 3xTF32 bound
                 (``blessed_conv_rate``), and over its f32 train step
                 (``blessed_train_dw``: dw's device ms a step);
- 17. the ``kernels`` line (``launches``: of the eight unsharded kernels,
+ 18. the ``kernels`` line (``launches``: of the eight unsharded kernels,
      the ``chain`` phase's, this slice's path; the ``blessed`` phase's as
      ``launches_blessed`` and the CUDA kernels the conv forward's calls
      launched there as ``cuda_launches_blessed`` (an f32 call launches two
@@ -212,7 +236,9 @@ while developing and then prints no ``kernels`` or ``ok`` line):
      and of the norm kernels' CP rows; the ``sharded_cli`` phase's, rank
      0's, as ``launches_sharded_cli``; the ``twod`` phase's launches as
      ``launches_twod`` and, for the norm and 1x1 kernels, their largest 2D
-     site's times as ``twod_site``), the raw nvidia-smi line, and last
+     site's times as ``twod_site``; the ``twod_sharded`` phase's, rank 0's,
+     as ``launches_twod_sharded``, on the CP rows too), the raw nvidia-smi
+     line, and last
      {"ok": true, "device": {...}}.
 
 ``--phases trained`` (run only when asked) drives the whole chain of the
@@ -269,7 +295,7 @@ SFM_BATCH, SFM_SIGMA = 4, 0.5
 DDNM_STEPS, DDNM_L = 10, 2
 PHASES = ("kernels", "parity", "grads", "main", "train", "sfm", "ddnm",
           "cli", "blessed", "chain", "sharded", "sharded_cli", "twod",
-          "profile")  # in the order they run
+          "twod_sharded", "profile")  # in the order they run
 # run only when asked: the conv, skip_proj and GroupNorm sites' timings
 # alone (the kernels phase takes them too), or the GroupNorm sites' alone,
 # for a before/after table with --port; the trained model's f32 path at
@@ -952,7 +978,7 @@ def check_dropout_apply(torch, K, size, C, dtype_name, batch, S=None):
     sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / n)
     tol = TOL[("apply", dtype_name)]
     line = {"phase": "kernel", "kernel": "gn_apply (dropout)",
-            "shape": [batch, size ** 3, C], "dtype": dtype_name,
+            "shape": list(x.shape), "dtype": dtype_name,
             "p": DROPOUT_P, "max_abs_err": abs_err, "rel_err": err,
             "tol": tol, "mask_mismatches": n_mismatch, "keep_rate": rate,
             "keep_rate_sigmas": abs(rate - (1 - DROPOUT_P)) / sigma,
@@ -1769,6 +1795,44 @@ def grad_errors(got_g, ref_g):
     return {k: (got_g[k] - g).abs().max().item()
             / max(g.abs().max().item(), 1e-3 * top)
             for k, g in ref_g.items()}, top
+
+
+def sharded_grad_parity(torch, ref_m, sh_m, ref_l, sh_l, ctx):
+    """After one backward of the unsharded model (loss terms ``ref_l``) and
+    of the sharded one on this rank's slab (``sh_l``): the sharded
+    gradients and loss terms averaged over the mesh against the unsharded
+    ones. Returns (errors by parameter, the largest gradient, the worst
+    parameter, the loss terms' largest error relative to max(1, |ref|))."""
+    from vdm4cdm_torch.parallel import mean_over_mesh_
+
+    flat = torch.cat([p.grad.reshape(-1) for _, p in sh_m.named_parameters()]
+                     + [torch.stack([x.detach() for x in sh_l])])
+    mean_over_mesh_(flat, ctx)
+    got_g, i = {}, 0
+    for k, p in sh_m.named_parameters():
+        got_g[k] = flat[i:i + p.numel()].reshape(p.shape).cpu()
+        i += p.numel()
+    got_loss = flat[i:].cpu()
+    ref_g = {k: p.grad.cpu() for k, p in ref_m.named_parameters()}
+    errs, top = grad_errors(got_g, ref_g)
+    loss_err = max(abs(got_loss[j].item() - x.item()) / max(1.0, abs(x.item()))
+                   for j, x in enumerate(ref_l))
+    return errs, top, max(errs, key=errs.get), loss_err
+
+
+def synced_step(torch, step, state, batch, gen, ctx):
+    """One more train step with the device synchronized around every
+    collective, so that their wall time is their own and not the queued
+    kernels': its seconds and the step's ``CommStats``."""
+    ctx.stats.reset()
+    ctx.stats.sync = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    synced = {"s_per_step": time.perf_counter() - t0, **ctx.stats.as_dict()}
+    ctx.stats.sync = False
+    return synced
 
 
 def phase_grads(torch, vt, K):
@@ -2778,14 +2842,18 @@ TWOD_CLI_FIRST, TWOD_CLI_LAST = 3, 5
 TWOD_PAIR = (64, 384, 192, 8)  # up_2_0's join: 576 channels, groups of 72
 
 
-def build_2d(vt, name, size, device, seed, **overrides):
+def build_2d(vt, name, size, device, seed, ctx=None, **overrides):
     """A 2D preset's model at crop ``size`` on GRF data, remat off, every
-    parameter randomized from the seed; returns (model, config)."""
+    parameter randomized from the seed (alike on the ranks of a sharded
+    phase), split along H over ``ctx``'s sp ranks when it is given;
+    returns (model, config)."""
+    if ctx is not None:
+        overrides["parallel.n_sp"] = ctx.size
     cfg = vt.preset(name, **{"data.kind": "grf", "data.cropsize": size,
                              "model.remat": False, **overrides})
     if tuple(cfg.model.chs) != TWOD_CHS or cfg.model.ndim != 2:
         raise AssertionError(f"{name} is not the full-width 2D model")
-    model = vt.build_model(cfg, device=device)
+    model = vt.build_model(cfg, device=device, ctx=ctx)
     randomize_(model, seed)
     return model.eval(), cfg
 
@@ -3108,6 +3176,36 @@ def twod_cli(torch, vt, K):
     return counts
 
 
+def twod_example(vt):
+    """``python -m vdm4cdm_torch.examples.smoke_test --steps 5`` as a user
+    runs it (its own process, on the card; the ``vdm4cdm_torch`` this
+    script imported): ``smoke_vdm_2d`` trained 5 steps, 2 fields sampled,
+    the panel written (its arrays, without matplotlib). Its output goes to
+    ``chiprun_out/examples_smoke.log``."""
+    import os
+
+    t0 = time.perf_counter()
+    port = str(pathlib.Path(vt.__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (port, os.environ.get("PYTHONPATH")))))
+    proc = subprocess.run(
+        [sys.executable, "-m", "vdm4cdm_torch.examples.smoke_test",
+         "--steps", "5", "--out", str(OUT_DIR / "examples_smoke")],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    (OUT_DIR / "examples_smoke.log").write_text(proc.stdout + proc.stderr)
+    printed = proc.stdout.splitlines()
+    line = {"phase": "twod", "what": "examples.smoke_test",
+            "argv": "--steps 5", "rc": proc.returncode,
+            "printed": [ln for ln in printed if ln.startswith(
+                ("trained", "samples:", "figure:", "matplotlib"))],
+            "seconds": time.perf_counter() - t0}
+    fail_unless(proc.returncode == 0
+                and any(ln.startswith("trained 5 steps") for ln in printed)
+                and any(ln.startswith("figure: ") for ln in printed),
+                "examples.smoke_test failed on the card", line)
+    emit(line)
+
+
 def phase_twod(torch, vt, K, kernels):
     """The 2D model family (see the module docstring); every kernel's
     launches over the phase's driven paths (the train steps, the samplers,
@@ -3144,6 +3242,8 @@ def phase_twod(torch, vt, K, kernels):
     for counts in cli.values():
         add(counts)
     lap("cli")
+    twod_example(vt)
+    lap("example")
     emit({"phase": "twod", "what": "launches", "total": total,
           "summary": summary, "seconds_by_part": parts,
           "seconds": time.perf_counter() - t_phase})
@@ -3157,6 +3257,310 @@ def phase_twod(torch, vt, K, kernels):
         kernels[name]["twod_site"] = {
             "shape": ln["shape"], "ms": ln["ms"], "bound_ms": ln["bound_ms"],
             "library_ms": ln["library_ms"], "max_abs_err": ln["max_abs_err"]}
+
+
+# ----------------------------------------------------------- twod_sharded
+
+# the twod_sharded phase: 2D models split along H over two sp ranks that
+# share cuda:0 over gloo. Parity at full width on a crop of TWOD_PARITY_SIZE,
+# batch 2 (the samplers TWOD_SHARDED_SAMPLER_STEPS steps); then train_uc_c
+# through the CLI at 256^2 as the sharded_cli phase runs the flagship, at a
+# global batch of 4, not the preset's 12: at 12 the phase took 180 s, 67 s of
+# it the first step's cuDNN benchmark search for the slab shapes on both
+# ranks at once (NVIDIA H100 80GB HBM3, 700 W); its directory (under runs/,
+# which git ignores) is deleted after the checks
+TWOD_SHARDED_SAMPLER_STEPS = 5
+TWOD_SHARDED_BATCH = 4
+TWOD_SHARDED_OUT = ROOT / "runs" / "chip_smoke_twod_sharded"
+
+
+def twod_parity_inputs(torch, family, size, seed):
+    """Global f32 inputs of a 2D parity check at batch 2: z, t, the batch
+    of one loss and its eps, the conditioning (v always; x0 for the SFM,
+    its spatial conditioning)."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (2, size, size, 1)
+
+    def n(*s):
+        return torch.randn(*s, generator=gen).cuda()
+
+    v = [n(2, 6)] if family == "vdm" else []
+    out = {"z": n(*shape), "t": torch.tensor([0.3, 0.8], device="cuda"),
+           "tt": torch.tensor([0.35, 0.85], device="cuda"), "eps": n(*shape),
+           "v": v}
+    if family == "vdm":
+        out["batch"] = {"x": n(*shape), "conditioning": None,
+                        "conditioning_values": v}
+    else:
+        x0 = n(*shape)
+        out["x0"] = x0
+        out["batch"] = {"x0": x0, "x1": 0.6 * x0 + 0.8 * n(*shape),
+                        "conditioning_values": v}
+    return out
+
+
+def twod_sharded_parity(torch, vt, K, ctx, name, family, seed):
+    """One 2D preset at full width on a TWOD_PARITY_SIZE^2 crop, f32,
+    dropout off, sharded along H against unsharded on the card: eps_hat
+    (the SFM's velocity), TWOD_SHARDED_SAMPLER_STEPS sampler steps (the
+    VDM's ancestral steps on injected noise, the SFM's Heun steps through
+    ``make_sharded_sfm_sampler``), and the loss and every gradient of one
+    step (injected t and eps; the gradients averaged over the mesh)."""
+    from vdm4cdm_torch.parallel import local_slab, make_sharded_sfm_sampler
+
+    t0 = time.perf_counter()
+    size = TWOD_PARITY_SIZE
+    over = {"model.dropout_prob": 0.0}
+    ref, _ = build_2d(vt, name, size, "cuda", seed, **over)
+    sh, _ = build_2d(vt, name, size, "cuda", seed, ctx=ctx, **over)
+    inp = twod_parity_inputs(torch, family, size, seed + 1)
+    v, t = inp["v"], inp["t"]
+
+    def slab(x):
+        return local_slab(x, ctx)
+
+    errs = {}
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        if family == "vdm":
+            want = slab(ref.eps_hat(inp["z"], t, None, v))
+            got = sh.eps_hat(slab(inp["z"]), t, None, v)
+        else:
+            want = slab(ref.velocity(inp["z"], t, v, inp["x0"]))
+            got = sh.velocity(slab(inp["z"]), t, v, slab(inp["x0"]))
+        errs["forward"] = rel_err(got, want)
+        max_ref = want.abs().max().item()
+        n = TWOD_SHARDED_SAMPLER_STEPS
+        if family == "vdm":
+            gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+            z0 = torch.randn(2, size, size, 1, generator=gen, device="cuda")
+            eps = [torch.randn(2, size, size, 1, generator=gen,
+                               device="cuda") for _ in range(n)]
+            want_s = slab(ref.draw_samples(batch_size=2, n_sampling_steps=n,
+                                           v_conditionings=v,
+                                           noise=(z0, eps)))
+            got_s = sh.draw_samples(batch_size=2, n_sampling_steps=n,
+                                    v_conditionings=v,
+                                    noise=(slab(z0), [slab(e) for e in eps]))
+        else:
+            want_s = ref.draw_samples(inp["x0"], n, v, method="heun")
+            got_s = make_sharded_sfm_sampler(sh, n)(inp["x0"], v)
+        torch.cuda.synchronize()
+        errs["sampler"] = rel_err(got_s, want_s)
+    forward_counts = K.launch_counts()
+
+    ref_l = ref.loss(inp["batch"], train=True, t=inp["tt"], eps=inp["eps"])
+    ref_l.loss.backward()
+    local = {k: (val if k == "conditioning_values" or val is None
+                 else slab(val)) for k, val in inp["batch"].items()}
+    sh_l = sh.loss(local, train=True, t=inp["tt"], eps=slab(inp["eps"]))
+    sh_l.loss.backward()
+    g_errs, top, worst, loss_err = sharded_grad_parity(torch, ref, sh, ref_l,
+                                                       sh_l, ctx)
+    net = ref.score_model if family == "vdm" else ref.unet
+    line = {"phase": "twod_sharded", "what": "parity", "model": name,
+            "family": family, "size": size, "batch": 2, "slab":
+            list(got.shape), "chs": list(TWOD_CHS), "dtype": "float32",
+            "dropout": 0.0, "mid_attn": net.mid_attn,
+            "padding": net.conv_padding_mode,
+            "max_abs_ref": max_ref,
+            "forward_max_abs_err": errs["forward"][0],
+            "forward_rel_err": errs["forward"][1],
+            "sampler_steps": n,
+            "sampler": "ancestral, injected noise" if family == "vdm"
+            else "heun", "sampler_max_abs_err": errs["sampler"][0],
+            "sampler_rel_err": errs["sampler"][1], "tol": SHARDED_TOL,
+            "loss": ref_l.loss.item(), "loss_rel_err": loss_err,
+            "grads_rel_err": g_errs[worst], "worst_param": worst,
+            "max_abs_grad": top, "grads_tol": GRADS_TOL,
+            "launches_forward_and_sampler": forward_counts,
+            "seconds": time.perf_counter() - t0}
+    fail_unless(bool(torch.isfinite(got).all()) and max_ref > 0.1
+                and errs["forward"][1] <= SHARDED_TOL
+                and errs["sampler"][1] <= SHARDED_TOL
+                and g_errs[worst] <= GRADS_TOL and loss_err <= 1e-4
+                and top > 1e-3
+                and min(forward_counts[k] for k in TWOD_FORWARD) > 0,
+                "2D sharded parity failed", line)
+    emit(line)
+
+
+def twod_sharded_step(torch, vt, K, ctx):
+    """A warm-up and one bare sharded ``train_uc_c`` step at the CLI's
+    shapes (a rank's slab of the global batch), then one with the device
+    synchronized around every collective: the collectives' counters of one
+    step (their wall time their own, not the queued kernels')."""
+    from vdm4cdm_torch.parallel import local_slab
+
+    torch.cuda.empty_cache()
+    model, cfg = build_2d(vt, TWOD_VDM, TWOD_SIZE, "cuda", 95, ctx=ctx)
+    g = batch_2d(torch, vt, cfg, TWOD_SHARDED_BATCH, "cuda")
+    batch = {"x": local_slab(g["x"], ctx), "conditioning": None,
+             "conditioning_values": g["conditioning_values"]}
+    facts, (state, step, _, gen) = timed_train_steps(
+        torch, vt, K, model.train(), batch, 1, 96, TWOD_KERNELS, ctx,
+        moment=None)
+    synced = synced_step(torch, step, state, batch, gen, ctx)
+    emit({"phase": "twod_sharded", "what": "bare step", "preset": TWOD_VDM,
+          "size": TWOD_SIZE, "global_batch": TWOD_SHARDED_BATCH,
+          "slab": list(batch["x"].shape), "n_sp": ctx.size,
+          "s_per_step": facts["s_per_step"],
+          "peak_mem_gib": facts["peak_mem_gib"], "comm": facts["comm"],
+          "synced_step": synced, "launches_per_step":
+          facts["launches_per_step"]})
+    return synced
+
+
+def twod_sharded_sites(torch, vt, K, ctx, rank):
+    """Every norm and ``skip_proj`` site of a rank's ``train_uc_c`` slab at
+    TWOD_SIZE^2 (read off one sharded forward on every rank), checked
+    against the plain versions on rank 0 while the others wait, untimed, in
+    f32 at the CLI's batches: ``gn_sums`` and ``gn_apply`` at the train
+    step's TWOD_SHARDED_BATCH and the sampler's SHARDED_CLI_REPS, the
+    apply's dropout bits, the backward pair at p = 0.1, and the 1x1
+    forward, dx pass and dw at TWOD_SHARDED_BATCH. Returns rank 0's worst
+    check of each kernel over the sites (empty on the others)."""
+    import torch.distributed as dist
+
+    from vdm4cdm_torch.parallel import local_slab
+
+    t0 = time.perf_counter()
+    model, cfg = build_2d(vt, TWOD_VDM, TWOD_SIZE, "cuda", 97, ctx=ctx)
+    batch = batch_2d(torch, vt, cfg, 1, "cuda")
+    sites = set()
+    with recorded_sites(sites), torch.inference_mode():
+        model.eps_hat(local_slab(batch["x"], ctx),
+                      torch.tensor([0.5], device="cuda"), None,
+                      batch["conditioning_values"], train=True,
+                      dropout_seed=1)
+    del model
+    norm = sorted(s[1:] for s in sites if s[0] == "norm")
+    mm = sorted(s[1:] for s in sites if s[0] == "mm1x1")
+    worst, dt, B = {}, "float32", TWOD_SHARDED_BATCH
+    dist.barrier()
+    if rank == 0:
+        lines = []
+        for S, C in norm:
+            size = int(round(math.sqrt(S)))  # the inputs' seed alone
+            check_dropout_apply(torch, K, size, C, dt, B, S=S)
+            for b in (B, SHARDED_CLI_REPS):
+                lines += check_norm(torch, K, size, C, dt, b, False, S=S)
+            lines += check_norm_bwd(torch, K, size, C, dt, B, "silu",
+                                    DROPOUT_P, False, S=S)
+        for S, cin, cout in mm:  # rows of S voxels: the slab flattened
+            lines += check_mm1x1(torch, K, S, cin, cout, dt, B, False, nd=1)
+        for ln in lines:
+            name = ln["kernel"].split(" ")[0]  # the dx pass is mm1x1_fwd
+            w = worst.setdefault(name, {"sites": 0, "rel_err": -1.0})
+            w["sites"] += 1
+            if ln["rel_err"] > w["rel_err"]:
+                w.update(rel_err=ln["rel_err"], shape=ln["shape"],
+                         max_abs_err=ln["max_abs_err"], tol=ln["tol"])
+    dist.barrier()
+    emit({"phase": "twod_sharded", "what": "slab sites checked",
+          "model": TWOD_VDM, "size": TWOD_SIZE, "norm_sites": norm,
+          "mm1x1_sites": mm, "worst": worst,
+          "seconds": time.perf_counter() - t0})
+    fail_unless(len(norm) > 0 and len(mm) > 0 and all(
+        S == TWOD_SIZE ** 2 // ctx.size for S, _ in norm[-1:]),
+        "no 2D slab sites recorded", {"sites": sorted(sites)})
+    return worst
+
+
+def twod_sharded_rank(rank, world):
+    """One rank of the twod_sharded phase (a process of its own on
+    cuda:0): the parity checks, ``train_uc_c`` through ``run_sharded_cli``
+    at global batch TWOD_SHARDED_BATCH, and one bare step with the
+    collectives' counters. Returns its lines and exit codes."""
+    global _SINK
+    _SINK = []
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import vdm4cdm_torch as vt
+    from vdm4cdm_torch.ops import kernels as K
+    from vdm4cdm_torch.parallel import make_mesh, make_shard_ctx
+
+    ctx = make_shard_ctx(make_mesh(1, world))
+    parts, t0 = {}, time.perf_counter()
+    for name, family, seed in ((TWOD_VDM, "vdm", 91), (TWOD_SFM, "sfm", 93)):
+        twod_sharded_parity(torch, vt, K, ctx, name, family, seed)
+    parts["parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = twod_sharded_sites(torch, vt, K, ctx, rank)
+    parts["sites"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line = run_sharded_cli(torch, vt, K, ctx, rank, TWOD_SHARDED_OUT,
+                           "twod_sharded", TWOD_VDM,
+                           ["data.kind=grf", "model.remat=False",
+                            f"data.batch_size={TWOD_SHARDED_BATCH}"])
+    parts["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["comm_per_step"] = twod_sharded_step(torch, vt, K, ctx)
+    parts["bare_step"] = time.perf_counter() - t0
+    line["seconds_by_part"] = parts
+    emit(line)
+    return {"lines": _SINK, "rcs": line["rcs"], "checked": checked}
+
+
+def phase_twod_sharded(torch, vt, kernels):
+    """2D models under ``sp`` sharding at full width (chs 48..384, f32): two
+    ranks on cuda:0 over gloo (as ``sharded``) check ``train_uc_c`` (VDM)
+    and ``trainSFM_c_uc`` (SFM, the gathered bottleneck attention) split
+    along H against unsharded at 64^2, then run ``cli.train --preset
+    train_uc_c --set parallel.n_sp=2`` at 256^2 (global batch
+    TWOD_SHARDED_BATCH, GRF, dropout 0.1) and ``cli.generate`` as the
+    ``sharded_cli`` phase runs the flagship (``run_sharded_cli``). Before
+    the ranks, in this process, ``parallel/dryrun.py``'s ``entry()`` once on
+    the card. Fails unless the parity holds and ``check_sharded_cli``
+    passes with every norm and 1x1 kernel launched and no conv3d kernel.
+    Adds the launches to the ``kernels`` line as
+    ``launches_twod_sharded``."""
+    import shutil
+
+    from vdm4cdm_torch.parallel.dryrun import entry
+    from vdm4cdm_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    line = {"phase": "twod_sharded", "what": "entry", "shape": list(y.shape),
+            "dtype": str(y.dtype).removeprefix("torch."),
+            "finite": bool(torch.isfinite(y).all()),
+            "seconds": time.perf_counter() - t0}
+    fail_unless(line["finite"] and tuple(y.shape) == tuple(args[0].shape),
+                "entry() did not give a finite forward on the card", line)
+    emit(line)
+    del fn, args, y
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    shutil.rmtree(TWOD_SHARDED_OUT, ignore_errors=True)
+    store = OUT_DIR / "twod_sharded_store"
+    store.mkdir(exist_ok=True)
+    ranks = spawn_ranks(twod_sharded_rank, SHARDED_RANKS,
+                        store_dir=str(store), timeout=SHARDED_TIMEOUT)
+    counts = check_sharded_cli(
+        torch, ranks, TWOD_SHARDED_OUT, "twod_sharded", TWOD_VDM,
+        {"size": TWOD_SIZE, "global_batch": TWOD_SHARDED_BATCH,
+         "dtype": "float32", "comm_per_step": [
+             o["lines"][-1]["comm_per_step"] for o in ranks],
+         "seconds": time.perf_counter() - t0},
+        (12, 1, TWOD_SIZE, TWOD_SIZE), TWOD_KERNELS, CONV3D_KERNELS)
+    # every norm launch of a sharded run is the CP form: the CP rows too;
+    # the slab checks go to the CP and 1x1 rows
+    checked = ranks[0]["checked"]
+    fail_unless(set(checked) == set(TWOD_KERNELS),
+                "a 2D slab kernel went unchecked", {"checked": checked})
+    for name in META:
+        row = kernels.setdefault(name, {})
+        row["launches_twod_sharded"] = counts[name.removesuffix("_cp")]
+        if name in CP_ROWS or name.startswith("mm1x1"):
+            row["twod_sharded_checked"] = checked[name.removesuffix("_cp")]
 
 
 # ------------------------------------------------------ precision (extra)
@@ -3353,8 +3757,7 @@ def sharded_checks(torch, vt, K, ctx):
     eps_hat, the loss and every gradient of one step (dropout 0), two real
     train steps (for the parameters' digest), the SFM's Heun sampler.
     Returns the digest."""
-    from vdm4cdm_torch.parallel import (local_slab, make_sharded_sfm_sampler,
-                                        mean_over_mesh_)
+    from vdm4cdm_torch.parallel import local_slab, make_sharded_sfm_sampler
     from vdm4cdm_torch.train.checkpoint import params_digest
 
     size = PARITY_SIZE
@@ -3395,24 +3798,11 @@ def sharded_checks(torch, vt, K, ctx):
              "conditioning_values": batch["conditioning_values"]}
     sh_l = sh_m.loss(local, train=True, t=tt, eps=local_slab(eps, ctx))
     sh_l.loss.backward()
-    names = [k for k, _ in sh_m.named_parameters()]
-    flat = torch.cat([p.grad.reshape(-1) for _, p in
-                      sh_m.named_parameters()]
-                     + [torch.stack([x.detach() for x in sh_l])])
-    mean_over_mesh_(flat, ctx)
-    got_g, i = {}, 0
-    for k, p in sh_m.named_parameters():
-        got_g[k] = flat[i:i + p.numel()].reshape(p.shape).cpu()
-        i += p.numel()
-    got_loss = flat[i:].cpu()
-    ref_g = {k: p.grad.cpu() for k, p in ref_m.named_parameters()}
-    errs, top = grad_errors(got_g, ref_g)
-    worst = max(errs, key=errs.get)
-    loss_err = max(abs(got_loss[j].item() - x.item()) / max(1.0, abs(x.item()))
-                   for j, x in enumerate(ref_l))
+    errs, top, worst, loss_err = sharded_grad_parity(torch, ref_m, sh_m,
+                                                     ref_l, sh_l, ctx)
     line = {"phase": "sharded", "what": "loss and gradients of one step",
             "model": VDM_PRESET, "size": size, "batch": 2,
-            "dtype": "float32", "dropout": 0.0, "n_params": len(names),
+            "dtype": "float32", "dropout": 0.0, "n_params": len(errs),
             "loss": ref_l.loss.item(), "loss_rel_err": loss_err,
             "rel_err": errs[worst], "worst_param": worst,
             "max_abs_grad": top, "tol": GRADS_TOL,
@@ -3474,16 +3864,7 @@ def sharded_timing(torch, vt, K, ctx):
              "conditioning_values": g["conditioning_values"]}
     facts, (state, step, _, gen) = timed_train_steps(
         torch, vt, K, vdm, batch, TRAIN_STEPS, 11, SHARDED_KERNELS, ctx)
-    # one more step with a device synchronize around every collective, so
-    # that their wall time is their own and not the queued kernels'
-    ctx.stats.reset()
-    ctx.stats.sync = True
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(state, batch, gen)
-    torch.cuda.synchronize()
-    synced = {"s_per_step": time.perf_counter() - t0, **ctx.stats.as_dict()}
-    ctx.stats.sync = False
+    synced = synced_step(torch, step, state, batch, gen, ctx)
     emit({"phase": "sharded", "what": "train", "preset": VDM_PRESET,
           "size": size, "global_batch": TRAIN_BATCH,
           "slab": list(batch["x"].shape), "n_sp": ctx.size,
@@ -3610,36 +3991,30 @@ SHARDED_CLI_REPS, SHARDED_CLI_GEN_STEPS = 2, 5
 SHARDED_CLI_OUT = ROOT / "runs" / "chip_smoke_sharded_cli"
 
 
-def sharded_cli_rank(rank, world):
-    """One rank of the sharded_cli phase (a process of its own on cuda:0):
-    ``cli.train`` to SHARDED_CLI_STEPS, resumed to SHARDED_CLI_RESUME,
-    ``cli.generate`` of one box, then one timed call of the sharded sampler
-    from the last checkpoint. The CLI's output goes to
-    ``chiprun_out/sharded_cli_rank<r>.log``. Returns its lines, launches and
-    peak memory."""
-    global _SINK
-    _SINK = []
-    import torch
-
-    torch.cuda.set_device(0)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    import vdm4cdm_torch as vt
+def run_sharded_cli(torch, vt, K, ctx, rank, out, tag, preset, overrides):
+    """In a rank of a sharded CLI phase (a process of its own on cuda:0):
+    ``cli.train --preset PRESET --set OVERRIDES parallel.n_sp=...`` to
+    SHARDED_CLI_STEPS (a checkpoint every SHARDED_CLI_CKPT), resumed to
+    SHARDED_CLI_RESUME, ``cli.generate`` of one CV_12_12 box
+    (SHARDED_CLI_REPS fields a call, SHARDED_CLI_GEN_STEPS steps), then one
+    timed call of the sharded sampler from the last checkpoint, as
+    ``cli.generate`` builds it (the same shapes: no warm-up). The run goes
+    to ``out``, the CLI's output to ``chiprun_out/<tag>_rank<r>.log``.
+    Returns the rank's line: exit codes, seconds, peak memory, the
+    sampler's times and collectives a step, the digest lines, launches."""
     from vdm4cdm_torch.cli import generate, train
     from vdm4cdm_torch.cli._common import apply_overrides, parse_overrides
-    from vdm4cdm_torch.ops import kernels as K
-    from vdm4cdm_torch.parallel import (make_mesh, make_shard_ctx,
-                                        make_sharded_vdm_sampler)
+    from vdm4cdm_torch.parallel import make_sharded_vdm_sampler
     from vdm4cdm_torch.train.checkpoint import load_params
 
-    out = SHARDED_CLI_OUT
-    log = OUT_DIR / f"sharded_cli_rank{rank}.log"
+    log = OUT_DIR / f"{tag}_rank{rank}.log"
     log.write_text("")
-    overrides = ["data.kind=grf", "model.remat=False", f"parallel.n_sp={world}",
+    overrides = [*overrides, f"parallel.n_sp={ctx.size}",
                  f"run.ckpt_every_steps={SHARDED_CLI_CKPT}",
                  "run.log_every_steps=1", f"run.out_dir={out}"]
     common = ["--device", "cuda:0", "--dist-backend", "gloo"]
-    argv = ["--preset", VDM_PRESET, *common, "--set", *overrides]
+    argv = ["--preset", preset, *common, "--set", *overrides]
+    torch.cuda.empty_cache()
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3650,12 +4025,12 @@ def sharded_cli_rank(rank, world):
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     train_counts = K.launch_counts()
 
-    ckpt_dir = out / VDM_PRESET / "checkpoints"
+    ckpt_dir = out / preset / "checkpoints"
     gen_dir = out / "samples"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rcs.append(run_logged(generate.main, [
-        VDM_PRESET, str(gen_dir), "CV_12_12", "--ckpt-dir", str(ckpt_dir),
+        preset, str(gen_dir), "CV_12_12", "--ckpt-dir", str(ckpt_dir),
         "--boxes", "1", "--reps-per-batch", str(SHARDED_CLI_REPS),
         "--n-sampling-steps", str(SHARDED_CLI_GEN_STEPS), *common, "--set",
         *overrides], log)[0])
@@ -3664,42 +4039,130 @@ def sharded_cli_rank(rank, world):
     gen_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = K.launch_counts()
 
-    # the sharded sampler alone, as cli.generate builds it: one timed call
-    # of SHARDED_CLI_REPS fields (cli.generate ran the same shapes in this
-    # process: no warm-up)
-    cfg = vt.preset(VDM_PRESET)
+    cfg = vt.preset(preset)
     apply_overrides(cfg, parse_overrides(overrides))
-    model = vt.build_model(cfg, device="cuda",
-                           ctx=make_shard_ctx(make_mesh(1, world)))
+    model = vt.build_model(cfg, device="cuda", ctx=ctx)
     load_params(str(ckpt_dir), model)
     model.eval()
     box = next(iter(vt.build_datamodule(cfg, "test").test_dataloader()))
-    s = torch.from_numpy(np.repeat(box["conditioning"][:1], SHARDED_CLI_REPS,
-                                   0)).cuda()
-    v = torch.from_numpy(np.repeat(box["conditioning_values"][0][:1],
-                                   SHARDED_CLI_REPS, 0)).cuda()
+
+    def reps(a):
+        return torch.from_numpy(np.repeat(a[:1], SHARDED_CLI_REPS, 0)).cuda()
+
+    s = None if box.get("conditioning") is None else reps(box["conditioning"])
+    v = ([reps(a) for a in box["conditioning_values"]]
+         if cfg.data.conditioning_values else [])
     sample = make_sharded_vdm_sampler(model, SHARDED_CLI_REPS,
                                       SHARDED_CLI_GEN_STEPS)
+    ctx.stats.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    field = sample(torch.Generator(device="cuda").manual_seed(1), s, [v])
+    field = sample(torch.Generator(device="cuda").manual_seed(1), s, v)
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t0
+    comm = ctx.stats.as_dict()
+    del model
 
     with open(log) as fh:
         agree = [ln.strip() for ln in fh if "ranks' parameters are equal" in ln]
-    line = {"phase": "sharded_cli", "what": "rank", "rcs": rcs,
+    return {"phase": tag, "what": "rank", "rcs": rcs,
             "train_seconds": train_s, "train_peak_gib": train_peak,
             "generate_seconds": gen_s, "generate_peak_gib": gen_peak,
             "sampler_call_s": call_s,
             "sampler_s_per_step": call_s / SHARDED_CLI_GEN_STEPS,
             "sampler_s_per_field_250": call_s / SHARDED_CLI_REPS
             * FIELD_STEPS / SHARDED_CLI_GEN_STEPS,
+            "sampler_comm_per_step": {
+                k: val / SHARDED_CLI_GEN_STEPS for k, val in comm.items()
+                if k != "sync"},
             "sampler_finite": bool(torch.isfinite(field).all()),
-            "digest_lines": agree,
-            "launches_train": train_counts, "launches": counts}
+            "digest_lines": agree, "launches_train": train_counts,
+            "launches": counts}
+
+
+def check_sharded_cli(torch, ranks, out, tag, preset, facts, field_shape,
+                      launched, not_launched=()):
+    """In the parent of a sharded CLI phase: print the ranks' lines, read
+    rank 0's ``metrics.csv`` (copied to ``chiprun_out/<tag>_metrics.csv``),
+    checkpoints and campaign file, emit the phase's line (``facts`` added)
+    and fail unless every rank's CLI exited 0, the losses and fields are
+    finite, the checkpoints and the digests agreeing at each are there, the
+    file has ``field_shape``, every kernel of ``launched`` ran and none of
+    ``not_launched``. Deletes the run's directory; returns rank 0's
+    launches."""
+    import shutil
+
+    for r, o in enumerate(ranks):
+        for ln in o["lines"]:
+            emit({**ln, "rank": r})
+    run_dir = out / preset
+    rows = read_metrics(run_dir / "metrics.csv")
+    shutil.copy(run_dir / "metrics.csv", OUT_DIR / f"{tag}_metrics.csv")
+    steps = {int(r["step"]): r for r in rows if r.get("step_s") not in
+             (None, "")}
+    losses = [float(steps[k]["loss"]) for k in sorted(steps)]
+    ckpts = sorted(int(n.name) for n in (run_dir / "checkpoints").iterdir()
+                   if n.name.isdigit())
+    field = np.load(out / "samples" / "gen_0.npy")
+    rank_lines = [o["lines"][-1] for o in ranks]
+    agree = rank_lines[0]["digest_lines"]
+    counts = rank_lines[0]["launches"]
+    line = {"phase": tag, "card": card_line(), "preset": preset, **facts,
+            "n_sp": len(ranks), "backend": "gloo (two ranks, one card)",
+            "steps": sorted(steps), "losses": losses,
+            "s_per_step_median_2_4": statistics.median(
+                float(steps[k]["step_s"]) for k in (2, 3, 4)),
+            "feed_wait_s": [float(steps[k]["feed_wait_s"]) for k in (2, 3, 4)],
+            "peak_gib_per_rank": [max(ln["train_peak_gib"],
+                                      ln["generate_peak_gib"])
+                                  for ln in rank_lines],
+            "sampler_s_per_field_250": [ln["sampler_s_per_field_250"]
+                                        for ln in rank_lines],
+            "checkpoints": ckpts, "digest_lines": agree,
+            "file": {"shape": list(field.shape), "dtype": str(field.dtype),
+                     "finite": bool(np.isfinite(field).all()),
+                     "std": float(field.std())},
+            "launches": counts,
+            "note": "two ranks share one card over gloo; halo planes go "
+                    "through pinned host memory: no multi-card figure"}
     emit(line)
-    return {"lines": _SINK, "counts": counts, "rcs": rcs}
+    fail_unless(
+        all(o["rcs"] == [0, 0, 0] for o in ranks)
+        and sorted(steps) == list(range(1, SHARDED_CLI_RESUME + 1))
+        and all(map(math.isfinite, losses))
+        and ckpts == [SHARDED_CLI_CKPT, SHARDED_CLI_STEPS, SHARDED_CLI_RESUME]
+        and len(agree) == 3 and f"step {SHARDED_CLI_RESUME}:" in agree[-1]
+        and line["file"]["shape"] == list(field_shape)
+        and line["file"]["finite"]
+        and all(ln["sampler_finite"] for ln in rank_lines)
+        and min(counts[k] for k in launched) > 0
+        and max((counts[k] for k in not_launched), default=0) == 0,
+        f"the {tag} phase failed", line)
+    shutil.rmtree(out)
+    return counts
+
+
+def sharded_cli_rank(rank, world):
+    """One rank of the sharded_cli phase (a process of its own on cuda:0):
+    the flagship through ``run_sharded_cli``. Returns its lines, launches
+    and exit codes."""
+    global _SINK
+    _SINK = []
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import vdm4cdm_torch as vt
+    from vdm4cdm_torch.ops import kernels as K
+    from vdm4cdm_torch.parallel import make_mesh, make_shard_ctx
+
+    ctx = make_shard_ctx(make_mesh(1, world))
+    line = run_sharded_cli(torch, vt, K, ctx, rank, SHARDED_CLI_OUT,
+                           "sharded_cli", VDM_PRESET,
+                           ["data.kind=grf", "model.remat=False"])
+    emit(line)
+    return {"lines": _SINK, "rcs": line["rcs"]}
 
 
 def phase_sharded_cli(torch, kernels):
@@ -3727,59 +4190,15 @@ def phase_sharded_cli(torch, kernels):
     store.mkdir(exist_ok=True)
     ranks = spawn_ranks(sharded_cli_rank, SHARDED_RANKS, store_dir=str(store),
                         timeout=SHARDED_TIMEOUT)
-    for r, out in enumerate(ranks):
-        for line in out["lines"]:
-            emit({**line, "rank": r})
-    run_dir = SHARDED_CLI_OUT / VDM_PRESET
-    rows = read_metrics(run_dir / "metrics.csv")
-    shutil.copy(run_dir / "metrics.csv", OUT_DIR / "sharded_cli_metrics.csv")
-    steps = {int(r["step"]): r for r in rows if r.get("step_s") not in
-             (None, "")}
-    losses = [float(steps[k]["loss"]) for k in sorted(steps)]
-    ckpts = sorted(int(n.name) for n in (run_dir / "checkpoints").iterdir()
-                   if n.name.isdigit())
-    field = np.load(SHARDED_CLI_OUT / "samples" / "gen_0.npy")
-    rank0 = ranks[0]["lines"][-1]
-    agree = rank0["digest_lines"]
-    counts = ranks[0]["counts"]
-    line = {"phase": "sharded_cli", "card": card_line(), "preset": VDM_PRESET,
-            "size": MAIN_SIZE,
-            "global_batch": TRAIN_BATCH, "n_sp": SHARDED_RANKS,
-            "dtype": "bfloat16", "backend": "gloo (two ranks, one card)",
-            "steps": sorted(steps), "losses": losses,
-            "s_per_step_median_2_4": statistics.median(
-                float(steps[k]["step_s"]) for k in (2, 3, 4)),
-            "feed_wait_s": [float(steps[k]["feed_wait_s"]) for k in (2, 3, 4)],
-            "peak_gib_per_rank": [max(o["lines"][-1]["train_peak_gib"],
-                                      o["lines"][-1]["generate_peak_gib"])
-                                  for o in ranks],
-            "sampler_s_per_field_250": [o["lines"][-1]
-                                        ["sampler_s_per_field_250"]
-                                        for o in ranks],
-            "checkpoints": ckpts, "digest_lines": agree,
-            "file": {"shape": list(field.shape), "dtype": str(field.dtype),
-                     "finite": bool(np.isfinite(field).all()),
-                     "std": float(field.std())},
-            "launches": counts, "seconds": time.perf_counter() - t0,
-            "note": "two ranks share one card over gloo; halo planes go "
-                    "through pinned host memory: no multi-card figure"}
-    emit(line)
-    fail_unless(
-        all(o["rcs"] == [0, 0, 0] for o in ranks)
-        and sorted(steps) == [1, 2, 3, 4]
-        and all(map(math.isfinite, losses))
-        and ckpts == [SHARDED_CLI_CKPT, SHARDED_CLI_STEPS, SHARDED_CLI_RESUME]
-        and len(agree) == 3 and f"step {SHARDED_CLI_RESUME}:" in agree[-1]
-        and line["file"]["shape"] == [12, 1] + [MAIN_SIZE] * 3
-        and line["file"]["finite"]
-        and all(o["lines"][-1]["sampler_finite"] for o in ranks)
-        and min(counts[k] for k in ZHALO_KERNELS) > 0
-        and min(counts[k[:-3]] for k in CP_ROWS) > 0,
-        "the sharded CLI failed", line)
-    shutil.rmtree(SHARDED_CLI_OUT)
+    counts = check_sharded_cli(
+        torch, ranks, SHARDED_CLI_OUT, "sharded_cli", VDM_PRESET,
+        {"size": MAIN_SIZE, "global_batch": TRAIN_BATCH, "dtype": "bfloat16",
+         "seconds": time.perf_counter() - t0},
+        (12, 1) + (MAIN_SIZE,) * 3,
+        ZHALO_KERNELS + tuple(k.removesuffix("_cp") for k in CP_ROWS))
     for name in ZHALO_KERNELS + CP_ROWS:
         kernels.setdefault(name, {})["launches_sharded_cli"] = counts[
-            name[:-3] if name.endswith("_cp") else name]
+            name.removesuffix("_cp")]
 
 
 UNSHARDED_KERNELS = ("conv3d_k3s1_fwd", "conv3d_k3s1_dw", "gn_sums",
@@ -3788,6 +4207,7 @@ UNSHARDED_KERNELS = ("conv3d_k3s1_fwd", "conv3d_k3s1_dw", "gn_sums",
 ZHALO_KERNELS = ("conv3d_k3s1_zhalo_fwd", "conv3d_k3s1_zhalo_dx",
                  "conv3d_k3s1_zhalo_dw")
 CP_ROWS = ("gn_sums_cp", "gn_apply_cp", "gn_bwd_sums_cp", "gn_bwd_apply_cp")
+CONV3D_KERNELS = UNSHARDED_KERNELS[:2] + ZHALO_KERNELS
 SHARDED_KERNELS = ZHALO_KERNELS + UNSHARDED_KERNELS[2:]
 SHARDED_FORWARD_KERNELS = ("conv3d_k3s1_zhalo_fwd", "gn_sums", "gn_apply",
                            "mm1x1_fwd")
@@ -4130,6 +4550,9 @@ def main() -> int:
     if "twod" in phases:
         phase_twod(torch, vt, K, heads)
         lap("twod")
+    if "twod_sharded" in phases:
+        phase_twod_sharded(torch, vt, heads)
+        lap("twod_sharded")
     if "precision" in phases:
         phase_precision(torch, vt, K)
         lap("precision")
@@ -4204,6 +4627,8 @@ def main() -> int:
          "launches_sharded": h["launches_sharded"],
          "launches_sharded_cli": h.get("launches_sharded_cli"),
          "launches_twod": h.get("launches_twod"),
+         "launches_twod_sharded": h.get("launches_twod_sharded"),
+         "twod_sharded_checked": h.get("twod_sharded_checked"),
          "twod_site": h.get("twod_site"),
          "max_abs_err": h["max_abs_err"], "ms": h["ms"],
          "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],

@@ -1,6 +1,6 @@
 """Rank functions of the multi-process tests of the port's sharded path
 (``test_torch_port_halo.py``, ``test_torch_port_sharded.py``,
-``test_torch_port_sharded_cli.py``).
+``test_torch_port_sharded_2d.py``, ``test_torch_port_sharded_cli.py``).
 
 Each runs in a fresh process of a gloo job started by
 ``vdm4cdm_torch.parallel.launch.spawn_ranks``: it builds the (data, sp)
@@ -238,6 +238,99 @@ def model(rank, world, n_data, n_sp, vdm_state, attn_state, sfm_state, z,
     out["sfm"] = sample(torch.from_numpy(x0),
                         [torch.from_numpy(v0)]).numpy()
     out["stats"] = ctx.stats.as_dict()
+    return out
+
+
+# -------------------------------------------------------------- 2D models
+
+def _build_2d(kind, state, kw, ctx):
+    """The 2D VDM or SFM of ``kw`` on this rank's ``ctx``, with ``state``
+    (numpy parameters) loaded, or its own init where ``state`` is None."""
+    import vdm4cdm_torch as vt
+
+    net = vt.CUNet(**kw, device="cpu", ctx=ctx,
+                   generator=torch.Generator().manual_seed(0))
+    model = (vt.VDM(net, vt.make_schedule("learned_linear", device="cpu"))
+             if kind == "vdm" else vt.SFM(net))
+    if state is not None:
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+    return model
+
+
+def model_2d(rank, world, n_data, n_sp, inputs):
+    """On this rank of the (n_data, n_sp) mesh, a 2D CUNet split over H:
+    eps_hat of the VDM for each padding of ``inputs["vdm"]``, two train
+    steps on this rank's slices of the global draws, the SFM's Heun sampler
+    through ``make_sharded_sfm_sampler``, and the sharded VDM sampler of a
+    freshly initialized VDM (zero ``conv_out``: its samples are a function
+    of the noise alone) drawn twice from one seed."""
+    from vdm4cdm_torch.parallel import (make_sharded_sfm_sampler,
+                                        make_sharded_vdm_sampler)
+
+    ctx = _setup(n_data, n_sp)
+    out = {"eps_hat": {}}
+    b = batch_slab(inputs["batch"], ctx)
+    with torch.no_grad():
+        for padding, (kw, state) in inputs["vdm"].items():
+            vdm = _build_2d("vdm", state, kw, ctx)
+            out["eps_hat"][padding] = vdm.eps_hat(
+                _slab(inputs["z"], ctx), _slab(inputs["t"], ctx),
+                b["conditioning"], b["conditioning_values"]).numpy()
+    kw, state = inputs["vdm"]["circular"]
+    vdm = _build_2d("vdm", state, kw, ctx)
+    inject(vdm, [(_slab(t, ctx).numpy(), _slab(eps, ctx).numpy())
+                 for t, eps in inputs["draws"]])
+    out["train"] = run_steps(vdm, b, len(inputs["draws"]))
+    kw, state = inputs["sfm"]
+    sample = make_sharded_sfm_sampler(_build_2d("sfm", state, kw, ctx),
+                                      inputs["sfm_steps"], method="heun")
+    out["sfm"] = sample(torch.from_numpy(inputs["x0"]),
+                        [torch.from_numpy(inputs["v0"])]).numpy()
+    kw = dict(inputs["vdm"]["circular"][0], s_conditioning_channels=0)
+    sample = make_sharded_vdm_sampler(_build_2d("vdm", None, kw, ctx),
+                                      n_data, inputs["noise_steps"])
+    v = [torch.ones(n_data, 6)]
+    out["noise"] = [sample(torch.Generator().manual_seed(7), None,
+                           v).numpy() for _ in range(2)]
+    return out
+
+
+def cli_2d(rank, world, out_dir, overrides):
+    """On the (1, world) mesh, a 2D model through the sharded CLI:
+    ``cli.train --preset smoke_vdm_2d`` under ``overrides`` for 2 steps,
+    resumed to 3, then ``cli.generate`` of its first CV_12_12 box from the
+    last checkpoint; the exit codes, what it printed (the trainer's digest
+    lines), the step-3 parameters and, on rank 0, the checkpoint steps, the
+    figures and the campaign's files."""
+    import contextlib
+    import io
+    import os
+
+    from vdm4cdm_torch.cli import generate, train
+    from vdm4cdm_torch.train.checkpoint import read_checkpoint
+
+    torch.set_num_threads(1)
+    run = ["--device", "cpu", "--set", *overrides]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rcs = [train.main(["--preset", "smoke_vdm_2d", *run,
+                           f"run.out_dir={out_dir}", f"run.max_steps={n}"])
+               for n in (2, 3)]
+        ckpt_dir = os.path.join(out_dir, "smoke_vdm_2d", "checkpoints")
+        gen_dir = os.path.join(out_dir, "samples")
+        rcs.append(generate.main([
+            "smoke_vdm_2d", gen_dir, "CV_12_12", "--ckpt-dir", ckpt_dir,
+            "--boxes", "1", "--n-sampling-steps", "2", "--reps-per-batch",
+            "12", *run]))
+    out = {"rcs": rcs, "log": log.getvalue().splitlines(),
+           "params": _tree(read_checkpoint(ckpt_dir, 3)["params"])}
+    if rank == 0:
+        out["steps"] = sorted(int(n) for n in os.listdir(ckpt_dir))
+        out["figures"] = sorted(os.listdir(os.path.join(
+            out_dir, "smoke_vdm_2d", "figures")))
+        out["files"] = {n: np.load(os.path.join(gen_dir, n))
+                        for n in sorted(os.listdir(gen_dir))}
     return out
 
 

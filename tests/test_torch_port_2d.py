@@ -187,9 +187,27 @@ def test_2d_cunet_needs_a_card_or_a_device(monkeypatch):
 
 
 def test_2d_cunet_under_sp_sharding_raises():
+    """A 2D net builds under a sharded ``ctx`` (its rows split over the
+    ``sp`` ranks; ``test_torch_port_sharded_2d.py`` runs it): each rank's
+    sample is its slab of H, a slab whose rows do not halve at every
+    downsample raises before any collective, and a shape of neither rank
+    still raises."""
     ctx = ShardCtx(group=object(), ranks=(0, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        vt.CUNet(**_kw(), device="cpu", ctx=ctx)
+    tv = vt.VDM(vt.CUNet(**_kw(), device="cpu", ctx=ctx),
+                vt.make_schedule("learned_linear", device="cpu"))
+    assert tv.score_model.ctx is ctx
+    assert tv.local_sample_shape_nlast == (N // 2, N, 1)
+    with pytest.raises(ValueError, match="do not divide by 8"):
+        tv.eps_hat(torch.zeros(1, 4, N, 1), torch.zeros(1),
+                   torch.zeros(1, 4, N, 1), [torch.zeros(1, 6)])
+    # the CUNet checks the map's rows a rank as it builds: 24 / 2 rows do
+    # not halve three times
+    cfg = vt.preset("smoke_vdm_2d", **{"parallel.n_sp": 2})
+    assert vt.build_model(cfg, device="cpu", ctx=ctx
+                          ).local_sample_shape_nlast == (16, 32, 1)
+    cfg.data.cropsize = 24
+    with pytest.raises(ValueError, match="12 planes do not divide by 8"):
+        vt.build_model(cfg, device="cpu", ctx=ctx)
     with pytest.raises(ValueError, match="shape"):
         vt.CUNet(**dict(_kw(), shape=(1, 8)), device="cpu")
 

@@ -80,3 +80,15 @@ def test_the_sharded_cli_modules_are_scanned():
                  "vdm4cdm_torch/train/checkpoint.py",
                  "vdm4cdm_torch/ops/kernels/conv3d.py", "chip_smoke.py"):
         assert path in scanned
+
+
+def test_the_dry_run_and_example_modules_are_scanned():
+    """The multi-rank dry run and the user examples stand alone too."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for path in ("vdm4cdm_torch/parallel/dryrun.py",
+                 "vdm4cdm_torch/examples/__init__.py",
+                 "vdm4cdm_torch/examples/smoke_test.py",
+                 "vdm4cdm_torch/examples/ddnm_inpainting.py",
+                 "vdm4cdm_torch/examples/check_cc.py",
+                 "vdm4cdm_torch/examples/make_generation_jobs.py"):
+        assert path in scanned

@@ -27,8 +27,14 @@ preset ``trainVDM3D128_c_c`` cut by ``--set`` to GRF data at 16^3, chs (8, 8,
   * (2, 1): ``cli.train`` takes a data-parallel step; ``cli.generate``
     refuses reps that do not split over ``n_data``, with the JAX CLI's
     message.
-  * The other refusals, in this process: a world size that is not ``n_data
-    * n_sp``, and a 2D model under ``n_sp`` > 1 (not ported yet).
+  * (1, 2) with a 2D model: ``cli.train --preset smoke_vdm_2d`` (16^2,
+    chs (8, 8, 8, 8)) for 2 steps, resumed to 3, a checkpoint at every step
+    with the ranks' digests compared (and printed) first, the validation
+    figure at step 2 from the sharded sampler; then ``cli.generate`` of one
+    CV_12_12 box, sharded: 12 finite (12, 1, 16, 16) fields, and equal
+    checkpoint parameters on both ranks.
+  * The other refusal, in this process: a world size that is not ``n_data
+    * n_sp``.
 """
 
 import dataclasses
@@ -42,7 +48,6 @@ import _torch_dist_worker as W
 from test_torch_port_data import registry  # noqa: F401 (a fixture)
 import vdm4cdm_torch as vt
 from vdm4cdm_torch.cli import generate, train
-from vdm4cdm_torch.cli._common import require_unsharded
 from vdm4cdm_torch.parallel.launch import spawn_ranks
 from vdm4cdm_torch.train.loop import _DeviceFeeder
 
@@ -54,6 +59,10 @@ SP = SMALL + ["parallel.n_sp=2", "run.ckpt_every_steps=2",
               "run.n_val_batches=1", "run.n_figure_sampling_steps=1"]
 DATA = SMALL + ["parallel.n_data=2", "run.ckpt_every_steps=1",
                 "run.val_check_interval=0"]
+SP_2D = ["data.cropsize=16", "model.chs=(8,8,8,8)", "model.norm_groups=4",
+         "parallel.n_sp=2", "run.ckpt_every_steps=1", "run.log_every_steps=1",
+         "run.val_check_interval=2", "run.n_val_batches=1",
+         "run.n_figure_sampling_steps=1"]
 REPS, STEPS = 12, 1  # a sampler call's reps, the campaign's sampler steps
 SFM = ["data.kind=grf", "data.cropsize=16", "model.chs=(8,8,8,8)",
        "model.remat=False", "model.sfm_sigma=0.5", "parallel.n_sp=2"]
@@ -73,6 +82,13 @@ def sp_job(tmp_path_factory):
     out = tmp_path_factory.mktemp("sp")
     return spawn_ranks(W.cli_sp, 2,
                        (str(out / "runs"), SP, REPS, STEPS, SFM),
+                       store_dir=str(out), timeout=TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def sp_2d_job(tmp_path_factory):
+    out = tmp_path_factory.mktemp("sp_2d")
+    return spawn_ranks(W.cli_2d, 2, (str(out / "runs"), SP_2D),
                        store_dir=str(out), timeout=TIMEOUT)
 
 
@@ -131,6 +147,28 @@ def test_rank_batches_are_slabs_of_the_jax_global_batch(n_data, n_sp):
             assert np.array_equal(got["conditioning_values"][0].numpy(),
                                   np.asarray(want["conditioning_values"][0])
                                   [rows])
+
+
+@pytest.mark.parametrize("n_data,n_sp", [(1, 2), (2, 2)])
+def test_2d_rank_batches_are_slabs_of_the_jax_global_batch(n_data, n_sp):
+    """As for 3D, bit for bit: each rank of a 2D run feeds its data index's
+    rows and its sp index's rows of H of the JAX package's GRF maps."""
+    cfg = vt.preset("smoke_vdm_2d", **{"data.cropsize": 16,
+                                       "data.batch_size": 4})
+    port = vt.build_datamodule(cfg, "fit").train_batches(2)
+    ref = JGRF(size=16, ndim=2, batch_size=4, n_conditioning_values=6,
+               mode="vdm", seed=cfg.run.seed).batches(n_batches=2)
+    for batch, want in zip(port, ref):
+        for rank in range(n_data * n_sp):
+            view = _RankView(n_data, n_sp, rank)
+            got = _DeviceFeeder(torch.device("cpu"), ctx=view).put(batch)
+            lb, lh = 4 // n_data, 16 // n_sp
+            rows = slice(view.data_index * lb, (view.data_index + 1) * lb)
+            hs = slice(view.index * lh, (view.index + 1) * lh)
+            for k in ("x", "conditioning"):
+                assert got[k].shape == (lb, lh, 16, 1)
+                assert np.array_equal(got[k].numpy(),
+                                      np.asarray(want[k])[rows, hs])
 
 
 def test_camels_ranks_take_their_data_rows_and_sp_planes(registry,
@@ -253,18 +291,22 @@ def test_the_world_size_must_equal_the_mesh(tmp_path):
                        "--set", *SMALL, "parallel.n_data=2"])
 
 
-def test_a_2d_model_under_sp_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        train.main(["--preset", "smoke_vdm_2d", "--device", "cpu", "--set",
-                    "parallel.n_sp=2", f"run.out_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        generate.main(["smoke_vdm_2d", str(tmp_path / "g"), "CV_12_12",
-                       "--ckpt-dir", str(tmp_path), "--device", "cpu",
-                       "--set", "parallel.n_sp=2"])
-    # what runs: every 3D mesh, and a 2D model over data ranks alone
-    for name, over in (("smoke_vdm_2d", {"n_data": 4}),
-                       ("trainVDM3D128_c_c", {"n_sp": 4, "n_data": 2})):
-        cfg = vt.preset(name)
-        for k, v in over.items():
-            setattr(cfg.parallel, k, v)
-        require_unsharded(cfg)
+def test_a_2d_model_under_sp_is_not_ported(sp_2d_job):
+    """It is: ``smoke_vdm_2d`` under ``parallel.n_sp=2`` trains, resumes
+    and generates on two gloo ranks, their digests agreeing at every
+    checkpoint."""
+    rank0, rank1 = sp_2d_job
+    assert rank0["rcs"] == rank1["rcs"] == [0, 0, 0]
+    assert "[trainer] resumed from step 2" in rank0["log"]
+    agree = [ln for ln in rank0["log"] if "ranks' parameters are equal" in ln]
+    assert [ln.split(":")[0] for ln in agree] == [
+        f"[trainer] step {s}" for s in (1, 2, 3)]
+    assert not [ln for ln in rank1["log"] if ln.startswith("[trainer]")]
+    assert rank0["steps"] == [1, 2, 3]
+    assert rank0["figures"] == ["validation_00000002.png"]
+    _equal(rank1["params"], rank0["params"])
+    files = rank0["files"]
+    assert sorted(files) == ["gen_0.npy"]
+    field = files["gen_0.npy"]
+    assert field.shape == (12, 1, 16, 16) and field.dtype == np.float32
+    assert np.isfinite(field).all() and field.std() > 0

@@ -2,8 +2,7 @@
 
 The device (``--device``; the CUDA card unless the caller names another, and
 an error without one), the ``torch.distributed`` job of a sharded run and its
-(data, sp) mesh, the config overrides, the model registry, the guard that
-keeps what is not ported yet (a 2D model under ``sp``) out of the CLI, and the
+(data, sp) mesh, the config overrides, the model registry and the
 validation-figure hook.
 
 A sharded run (``parallel.n_data * parallel.n_sp`` > 1) is one process a rank,
@@ -137,17 +136,6 @@ def apply_overrides(cfg, overrides: dict) -> None:
         setattr(getattr(cfg, section), field, v)
 
 
-def require_unsharded(cfg) -> None:
-    """What the sharded CLI does not run yet: a 2D model under ``sp``
-    sharding (``parallel.n_sp`` > 1; ROADMAP.md, queue 1, item 5). A 2D
-    model under data parallelism alone, and every 3D mesh, run."""
-    if cfg.model.ndim == 2 and cfg.parallel.n_sp > 1:
-        raise NotImplementedError(
-            f"parallel.n_sp={cfg.parallel.n_sp} with a 2D model: 2D under sp "
-            "sharding is not ported yet (ROADMAP.md, queue 1, item 5); "
-            "shard a 2D run over parallel.n_data only")
-
-
 def read_registry(path: str) -> dict:
     """A model registry (``configs/models_torch.yaml``, or the JAX package's
     ``configs/models.yaml``): ``{name: {key: scalar}}``. Reads the block-YAML
@@ -209,8 +197,9 @@ def make_validation_figure_fn(cfg, model, dm):
     ``cfg.run.n_figure_sampling_steps``, 100 when unset.
 
     Under ``cfg.parallel``'s mesh (the model built with this rank's
-    ``ctx``) it samples through the sharded samplers, as the JAX hook's
-    mesh branch does: the batch is the global one, every rank enters the
+    ``ctx``, a 3D box or a 2D map split along its first spatial dim) it
+    samples through the sharded samplers, as the JAX hook's mesh branch
+    does: the batch is the global one, every rank enters the
     sampler (its collectives need them all), ``max(2, n_data)`` fields so
     that they split over the data ranks, and the gathered samples are
     rendered on rank 0 alone (the other ranks return None)."""

@@ -22,7 +22,8 @@ card unless ``--device`` names another device.
 
 ``parallel.n_data`` / ``n_sp`` > 1 (``--set``, as the run was trained)
 samples under the (data, sp) mesh, one process a rank, started as
-``cli.train``'s ranks are: the volume splits over ``sp`` and each sampler
+``cli.train``'s ranks are: the field splits over ``sp`` (D of a 3D box, H of
+a 2D map) and each sampler
 call's reps over ``data`` (``--reps-per-batch`` a multiple of
 ``parallel.n_data``), through ``make_sharded_vdm_sampler`` or
 ``make_sharded_sfm_sampler`` (its ODE, noise-injected and ``sde`` methods);
@@ -41,13 +42,15 @@ import torch
 
 from ._common import (add_device_arg, add_dist_args, apply_overrides,
                       init_distributed, make_mesh_from_config, parse_overrides,
-                      read_registry, require_unsharded)
+                      read_registry)
 
 ONE_P_INDICES = [0, 4, 7, 23, 28]
 ONE_P_NAMES = ["fid", "Om_m2", "Om_p2", "ASN1_m3", "ASN1_p3"]
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The command line of ``cli.generate`` (also what
+    ``examples/make_generation_jobs.py`` writes)."""
     ap = argparse.ArgumentParser(description="Generate posterior samples")
     ap.add_argument("model_name", type=str, help="preset / registry model name")
     ap.add_argument("save_path", type=str)
@@ -78,6 +81,11 @@ def main(argv=None):
                     help="config overrides — must match the training run's")
     add_device_arg(ap)
     add_dist_args(ap)
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     from ..presets import preset as get_preset
@@ -98,7 +106,6 @@ def main(argv=None):
     apply_overrides(cfg, overrides)
     cfg.data.set_name = args.runtype.split("_")[0]
     cfg.data.batch_size = 1
-    require_unsharded(cfg)
     is_sfm = cfg.model.family == "sfm"
 
     # SFM models trained with sfm_sigma > 0 sample stochastically (noise-

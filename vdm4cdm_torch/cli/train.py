@@ -7,6 +7,8 @@ Usage:
     python -m vdm4cdm_torch.cli.train --preset smoke_sfm_3d --device cpu
     torchrun --nproc-per-node 2 -m vdm4cdm_torch.cli.train \
         --preset trainVDM3D128_c_c --set parallel.n_sp=2
+    torchrun --nproc-per-node 2 -m vdm4cdm_torch.cli.train \
+        --preset train_uc_c --set parallel.n_sp=2 data.kind=grf
 
 Runs on the CUDA card unless ``--device`` names another device; without a
 card and without ``--device cpu`` it raises. The run's directory is
@@ -22,9 +24,10 @@ figures.
 
 ``parallel.n_data`` / ``n_sp`` > 1 trains under the (data, sp) mesh, one
 process a rank (``torchrun``, or ``--coordinator HOST:PORT --num-processes
-N --process-id R`` on each rank; ``cli/_common.py`` says more): the model is
-built on every rank from the same seed with this rank's ``ctx``, each rank
-feeds its slab of the global batch, rank 0 writes the logs and the
+N --process-id R`` on each rank; ``cli/_common.py`` says more), 3D and 2D
+models alike (``sp`` splits D of a box, H of a map): the model is built on
+every rank from the same seed with this rank's ``ctx``, each rank feeds its
+slab of the global batch, rank 0 writes the logs and the
 checkpoints, and the validation figure samples through the sharded samplers.
 """
 
@@ -38,8 +41,7 @@ import torch
 
 from ._common import (add_device_arg, add_dist_args, apply_overrides,
                       init_distributed, make_mesh_from_config,
-                      make_validation_figure_fn, parse_overrides,
-                      require_unsharded)
+                      make_validation_figure_fn, parse_overrides)
 
 __all__ = ["main", "parse_overrides"]
 
@@ -71,7 +73,6 @@ def main(argv=None):
     else:
         ap.error("need --preset or --config")
     apply_overrides(cfg, parse_overrides(args.overrides))
-    require_unsharded(cfg)
     device, joined = init_distributed(args)
     try:
         return _train(cfg, args, device)

@@ -149,7 +149,10 @@ def build_model(cfg: ExperimentConfig, device=None, ctx=None,
     ``torch.Generator``; None = torch's global one). ``ctx`` (a
     :class:`~vdm4cdm_torch.parallel.halo.ShardCtx` of this rank, None =
     unsharded) splits the UNet over ``cfg.parallel``'s mesh, whose sizes it
-    must match; the model then works on this rank's slab."""
+    must match; the model then works on this rank's slab of the first
+    spatial dim (D of a 3D box, H of a 2D map), whose ``cropsize / n_sp``
+    planes must halve at each of the UNet's downsamples (``CUNet`` checks
+    it)."""
     import torch
 
     from .diffusion import VDM, make_schedule

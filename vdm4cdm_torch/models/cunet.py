@@ -28,14 +28,14 @@ so a JAX params tree maps onto ``state_dict`` by name alone
     {b}``, ``mid_0``, ``mid_1``, ``up_{l}_{b}``; the bottleneck counts as the
     last level) is in ``remat_blocks``. The recomputed forward regenerates
     the same dropout mask from (seed, index), so no RNG state is kept;
-  * ``ctx`` (a :class:`~vdm4cdm_torch.parallel.halo.ShardCtx`; 3D only, a
-    2D net under a sharded one raises) splits the
-    first spatial dim over the ``sp`` ranks, as the JAX module's ``ctx``
-    does: every conv exchanges halo planes, every GroupNorm all-reduces its
-    sums, the stride-2 downsamples need an even local size (so a rank's
-    share of D must divide by 2^(levels - 1)), and the bottleneck attention
-    gathers the whole field and takes its chunk back. Inputs and outputs
-    are then this rank's slab.
+  * ``ctx`` (a :class:`~vdm4cdm_torch.parallel.halo.ShardCtx`) splits the
+    first spatial dim over the ``sp`` ranks (D of a 3D net, H of a 2D one),
+    as the JAX module's ``ctx`` does: every conv exchanges halo planes
+    (rows), every GroupNorm all-reduces its sums, the stride-2 downsamples
+    need an even local size (so a rank's share of the split dim must divide
+    by 2^(levels - 1)), and the bottleneck attention gathers the whole field
+    and takes its chunk back. Inputs and outputs are then this rank's
+    slab.
 
 Parameters initialize as the JAX module's do (LeCun-normal kernels, zero
 biases, unit norm scales, zero ``conv_out``, second ResBlock convs and
@@ -249,11 +249,22 @@ class AttentionBlock(nn.Module):
         return x + out.to(x.dtype)
 
 
+def _check_slab(planes, levels: int) -> None:
+    """A rank's share of the split dim must halve at each of the
+    ``levels - 1`` stride-2 downsamples."""
+    halvings = 2 ** (levels - 1)
+    if planes % halvings:
+        raise ValueError(
+            f"a rank's {planes:g} planes do not divide by {halvings}: the "
+            f"{levels - 1} downsamples need an even slab")
+
+
 class CUNet(nn.Module):
     """``shape`` is (C_out, *spatial), the whole field's, with 2 or 3
     spatial dims; inputs and outputs are channels-last (this rank's slab
-    under a sharded ``ctx``, 3D only). ``device=None`` means CUDA (and
-    raises without it)."""
+    of the first spatial dim under a sharded ``ctx``, which must halve at
+    every downsample). ``device=None`` means CUDA (and raises without
+    it)."""
 
     def __init__(
         self,
@@ -282,9 +293,8 @@ class CUNet(nn.Module):
             raise ValueError(f"shape {tuple(shape)}: need (C, H, W) or "
                              "(C, D, H, W)")
         nd = len(shape) - 1
-        if nd == 2 and ctx.sharded:
-            raise NotImplementedError("a 2D CUNet under sp sharding is not "
-                                      "ported yet (ROADMAP.md, queue 1)")
+        if ctx.sharded:
+            _check_slab(shape[1] / ctx.size, len(chs))
         self.shape = tuple(shape)
         self.chs = tuple(chs)
         self.s_conditioning_channels = s_conditioning_channels
@@ -398,11 +408,8 @@ class CUNet(nn.Module):
                 f"got {len(v_conditionings)}")
         x = z.to(self.compute_dtype).contiguous()
         bsz = x.shape[0]
-        halvings = 2 ** (len(self.chs) - 1)
-        if self.ctx.sharded and x.shape[1] % halvings:
-            raise ValueError(
-                f"a rank's {x.shape[1]} planes do not divide by {halvings}: "
-                f"the {len(self.chs) - 1} downsamples need an even slab")
+        if self.ctx.sharded:
+            _check_slab(x.shape[1], len(self.chs))
 
         emb = None
         if self.t_conditioning:

@@ -37,10 +37,10 @@
     convs).
     Padding is the torch-style symmetric (k//2, k//2).
 
-Under spatial sharding (a sharded ``ctx``, ``vdm4cdm_tpu/ops/conv.py:111-150``,
-3D only) the split dim D is not padded locally: the slab is extended by the
-neighbours' halo planes (``parallel.halo.halo_exchange``) and the conv runs
-valid in z, padded in-plane only:
+Under spatial sharding (a sharded ``ctx``, ``vdm4cdm_tpu/ops/conv.py:111-150``)
+the split dim (D in 3D, H in 2D) is not padded locally: the slab is extended
+by the neighbours' halo planes or rows (``parallel.halo.halo_exchange``) and
+the conv runs valid along it, padded in the other dims only:
 
   * k3/s1 with supported channels: a (1, 1) halo, then the z-halo kernels
     through :class:`Conv3dK3S1` with ``zhalo`` (bias, residual and the
@@ -50,8 +50,10 @@ valid in z, padded in-plane only:
     conv stands in;
   * k1: no halo, as unsharded;
   * everything else (``conv_in``, ``conv_out``, the stride-2 downsample, a k3
-    outside the multiples of 8): a (k//2, k//2) halo, then the library conv
-    valid in z and padded in H and W (a wrap pad for circular).
+    outside the multiples of 8, and every k3 of a 2D model): a (k//2, k//2)
+    halo, then the library conv valid along the split dim and padded in the
+    others (a wrap pad for circular; in 2D that is W alone). The stride-2
+    downsample's (1, 1) halo is JAX's ``(k//2, (k-1)//2)`` for k = 3.
 """
 
 from __future__ import annotations
@@ -255,8 +257,8 @@ def conv_nd(
     """y = conv(x, w) + b (+ residual), x (B, *spatial, Cin) with 2 or 3
     spatial dims. With ``emit_stats`` returns (y, sums), sums the (B, 2,
     Cout) f32 (sum y, sum y^2) where the 3D hand kernel produced y, else
-    None. Under a sharded ``ctx`` (3D only) x is this rank's slab of the
-    split dim D, and so are y and the sums."""
+    None. Under a sharded ``ctx`` x is this rank's slab of the split dim (D
+    in 3D, H in 2D), and so are y and the sums."""
     if padding_mode not in ("zeros", "circular"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if isinstance(x, Pair):

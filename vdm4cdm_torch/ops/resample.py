@@ -4,9 +4,10 @@
 Both take channels-last (B, *spatial, C) with 2 or 3 spatial dims.
 
 Down: the stride-2 k3 convolution, which halves every spatial dim. Under
-spatial sharding (3D) it runs on a slab extended by one halo plane on each side
-(``ops/conv.py``), so each rank's share of D must be even: then rank r's
-output planes are exactly the global output's planes r * D / 2 onwards.
+spatial sharding (3D or 2D) it runs on a slab extended by one halo plane (row)
+on each side (``ops/conv.py``), so each rank's share n of the split dim must
+be even: then rank r's output planes are exactly the global output's planes
+r * n / 2 onwards.
 
 Up: nearest-neighbour x2, purely local also under sharding (each slab
 doubles in place); the k3 conv that follows is a ``Conv`` of its own.

@@ -1,12 +1,13 @@
 """Spatial-domain parallelism: halo exchange over the ``sp`` process group,
 counterpart of ``vdm4cdm_tpu/parallel/halo.py``.
 
-The first spatial dimension of the field is split over the ranks of the
-``sp`` group, one process per rank (``torch.distributed``). Every
-convolution exchanges a one-plane halo with its ring neighbours before it
-runs valid in z, and every GroupNorm all-reduces its (B, 2, C) sums. Circular
-padding is the periodic ring; zeros padding drops the wrap-around edge, so the
-open ends receive zero planes.
+The first spatial dimension of the field (D of a 3D (B, D, H, W, C) field,
+H of a 2D (B, H, W, C) map) is split over the ranks of the ``sp`` group, one
+process per rank (``torch.distributed``). Every convolution exchanges a
+one-plane (one-row in 2D) halo with its ring neighbours before it runs valid
+along the split dim, and every GroupNorm all-reduces its (B, 2, C) sums.
+Circular padding is the periodic ring; zeros padding drops the wrap-around
+edge, so the open ends receive zero planes.
 
 ``ppermute`` is the counterpart of ``jax.lax.ppermute``: a batch of
 ``isend`` / ``irecv`` (``dist.batch_isend_irecv``). The route follows the
@@ -62,8 +63,9 @@ class ShardCtx:
 
     group:       the ``sp`` process group (None = unsharded);
     ranks:       its global ranks in ``sp`` order;
-    spatial_dim: the split spatial dimension (0 only: arrays are
-                 channels-last (B, D, H, W, C), so it is array dim 1);
+    spatial_dim: the split spatial dimension (0 only, as the JAX CUNet
+                 uses: arrays are channels-last (B, D, H, W, C) or (B, H,
+                 W, C), so it is array dim 1, D in 3D and H in 2D);
     data_group / data_ranks: the data-parallel group of this rank (None =
                  no data parallelism), used by the train step and samplers;
     stats:       the collectives' counters (:class:`CommStats`)."""
@@ -236,8 +238,8 @@ class _HaloExchange(torch.autograd.Function):
 
 def halo_exchange(x: torch.Tensor, ctx: ShardCtx, lo: int, hi: int,
                   periodic: bool) -> torch.Tensor:
-    """Extend the split dim of the local slab ``x`` by ``lo`` / ``hi``
-    planes from the ring neighbours (zeros at open ends unless
+    """Extend the split dim of the local slab ``x`` (3D or 2D) by ``lo`` /
+    ``hi`` planes (rows) from the ring neighbours (zeros at open ends unless
     ``periodic``). Unsharded it is the plain wrap or zero pad."""
     if lo == 0 and hi == 0:
         return x
@@ -280,8 +282,8 @@ class _AllGather(torch.autograd.Function):
 
 
 def all_gather_spatial(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
-    """The whole split dim on every rank (the tiny UNet bottleneck, for
-    full self-attention)."""
+    """The whole split dim on every rank, 3D or 2D (the tiny UNet
+    bottleneck, for full self-attention)."""
     return _AllGather.apply(x, ctx) if ctx.sharded else x
 
 

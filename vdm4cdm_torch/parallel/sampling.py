@@ -1,9 +1,9 @@
 """Spatially sharded sampling: counterpart of
 ``vdm4cdm_tpu/parallel/sampling.py``.
 
-Each rank runs the model's sampler on its slab of the field (the batch split
-over ``data``, the first spatial dim over ``sp``); every UNet evaluation
-exchanges halo planes and all-reduces its GroupNorm sums, and only the final
+Each rank runs the model's sampler on its slab of the field, 3D or 2D (the
+batch split over ``data``, the first spatial dim over ``sp``: D of a box, H
+of a map); every UNet evaluation exchanges halo planes and all-reduces its GroupNorm sums, and only the final
 field is gathered. The returned functions take the global conditioning,
 split it with :func:`~vdm4cdm_torch.parallel.shard.local_slab`, and return
 the global samples on every rank.
@@ -28,7 +28,7 @@ def make_sharded_vdm_sampler(vdm, batch_size: int = 1,
                              n_sampling_steps: int = 250):
     """``sample(generator, s_conditioning=None, v_conditionings=())`` for a
     VDM whose score model holds this rank's ``ctx``. ``s_conditioning`` is
-    the global (batch_size, D, H, W, Cs) field and ``v_conditionings`` the
+    the global (batch_size, *spatial, Cs) field (3D or 2D) and ``v_conditionings`` the
     global (batch_size, d) vectors. ``generator`` is in the same state on
     every rank."""
     ctx = vdm.score_model.ctx
@@ -57,8 +57,8 @@ def make_sharded_vdm_sampler(vdm, batch_size: int = 1,
 def make_sharded_sfm_sampler(sfm, n_sampling_steps: int = 250,
                              method: str = "heun"):
     """``sample(x0, v_conditionings=(), generator=None)`` for an SFM whose
-    velocity model holds this rank's ``ctx``: x0 the global (B, D, H, W, C)
-    start field, ``v_conditionings`` the global (B, d) vectors. Without a
+    velocity model holds this rank's ``ctx``: x0 the global (B, *spatial, C)
+    start field (3D or 2D), ``v_conditionings`` the global (B, d) vectors. Without a
     generator the euler and heun methods are deterministic; with one (in the
     same state on every rank) the start noise and the ``sde`` steps' noise
     fold in both mesh indices."""

@@ -3,7 +3,8 @@ counterpart of ``vdm4cdm_tpu/parallel/shard.py`` and of the mesh part of
 ``vdm4cdm_tpu/utils/mesh.py``.
 
 Parameters are replicated. A global batch is split over the mesh: the batch
-dim over ``data``, the first spatial dim over ``sp``. ``sp`` is the minor
+dim over ``data``, the first spatial dim over ``sp`` (D of a 3D box, H of a
+2D map). ``sp`` is the minor
 axis, so the ranks of one ``sp`` group are consecutive (rank = data_index *
 n_sp + sp_index), as the JAX mesh lays ``sp`` out on neighbouring devices.
 
@@ -92,8 +93,9 @@ def make_shard_ctx(mesh: Mesh) -> ShardCtx:
 
 def local_slab(x: torch.Tensor, ctx: ShardCtx, rows: bool = True
                ) -> torch.Tensor:
-    """This rank's block of a global (B, D, H, W, C) field: its data rank's
-    batch rows and its ``sp`` rank's planes of D. A (B, d) vector (a
+    """This rank's block of a global (B, D, H, W, C) or (B, H, W, C) field:
+    its data rank's batch rows and its ``sp`` rank's planes of D (rows of H
+    in 2D). A (B, d) vector (a
     conditioning value) is split on the batch only. ``rows=False``: x holds
     this data rank's rows already (a data module that serves its process's
     block), and only the planes are taken."""
